@@ -18,7 +18,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-KERNELS = ("ntt_stage", "poseidon2")
+KERNELS = ("ntt_stage", "poseidon2", "ntt_small")
 
 _LIBS: dict = {}  # kernel handles: name -> ctypes.CDLL
 
@@ -36,6 +36,10 @@ _SIGNATURES = {
     "poseidon2": {
         "poseidon2_set_constants": [_P, _P],  # round constants, diagonal
         "poseidon2_permute": [_P, _P, _LL, _P],  # in, out, batch, stream
+    },
+    "ntt_small": {
+        # x, y, stage table, log_n, batch, inverse, 1/n scale, stream
+        "ntt_small": [_P, _P, _P, _I, _LL, _I, _ULL, _P],
     },
 }
 

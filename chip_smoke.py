@@ -6,13 +6,18 @@ the flagship proof, then proves the flagship 8 kB SHA-256 circuit (2^16 rows,
 LDE 8, cap 16, Poseidon transcript, Poseidon2 trees) through the port's entry
 points and requires the sha256 of `proof_to_json(proof)` to equal the
 reference digest committed in `boojum_tpu_torch/data/flagship_proof_digest.json`
-(made by `scripts/torch_reference_digest.py` from the JAX package).
+(made by `scripts/torch_reference_digest.py` from the JAX package). Then it
+holds the all-stage small NTT kernel against its plain version and runs the
+standalone NTT entry point `pallas_ntt.ntt_any` at (2^24, 8), whose output
+must equal the digest in `boojum_tpu_torch/data/ntt_2e24_digest.json` (made
+by `scripts/torch_reference_ntt_digest.py`) and the radix-256 route
+`ntt.ntt_fourstep_cols`.
 
     python3 chip_smoke.py
 
 Prints the card's `name, power.limit`, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, with no result line, when
-CUDA is unavailable or any phase fails.
+CUDA or nvidia-smi is unavailable or any phase fails.
 """
 
 import hashlib
@@ -40,11 +45,16 @@ def log(msg):
 
 
 def card_line():
+    """The card's ``name, power.limit``; raises when nvidia-smi cannot say,
+    since every number of the run is reported beside it."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
-        "nvidia-smi failed: " + out.stderr.strip()
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        raise RuntimeError("nvidia-smi failed (rc %d): %s"
+                           % (out.returncode, out.stderr.strip()))
+    return lines[0]
 
 
 def cuda_ms(fn, iters):
@@ -147,6 +157,129 @@ def check_poseidon2(rng, results):
                             bound_by=b_by, err=err))
 
 
+def check_ntt_small(rng, results):
+    """K4 against its plain version, forward and inverse: small and large n,
+    batches that are not a multiple of the kernel's tile, and the two shapes
+    of the NTT path, (512, 2^18) and (8, 2^24)."""
+    import numpy as np
+    from boojum_tpu_torch.field import goldilocks as gl
+    from boojum_tpu_torch.ntt import pallas_ntt as pn
+
+    cases = [(0, 7), (1, 1 << 20), (3, 3001), (9, 1000), (12, 1030),
+             (9, 1 << 18), (3, 1 << 24)]
+    for (log_n, b) in cases:
+        n = 1 << log_n
+        x = gl.from_u64(rng.integers(0, gl.ORDER, (n, b), dtype=np.uint64),
+                        "cuda")
+        for inverse in (False, True):
+            got = pn.ntt_small(x, log_n, inverse)
+            want = pn.ntt_small_plain(x, log_n, inverse)
+            err = max_abs_err(got, want)
+            if err != 0.0:
+                raise AssertionError("ntt_small n=%d B=%d inverse=%s differs "
+                                     "from its plain version (max abs err %g)"
+                                     % (n, b, inverse, err))
+            ms = cuda_ms(lambda: pn.ntt_small(x, log_n, inverse), 20)
+            plain_ms = cuda_ms(lambda: pn.ntt_small_plain(x, log_n, inverse),
+                               2)
+            muls = (n // 2) * log_n * b + n * b * int(inverse)
+            b_ms, b_by = bound(2 * n * b * 8 + n * 8, muls)
+            log("ntt_small n=%d B=%d inverse=%d: bit-equal, %.4f ms kernel, "
+                "%.3f ms plain, bound %.4f ms (%s), %.1f%% of bound"
+                % (n, b, inverse, ms, plain_ms, b_ms, b_by, 100 * b_ms / ms))
+            results.append(dict(log_n=log_n, b=b, inverse=inverse, ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, err=err))
+        del x, got, want
+
+
+def ntt_path(k4_ms):
+    """The standalone NTT entry point at 2^24 x 8: `pallas_ntt.ntt_any` (the
+    K4 route) against the committed JAX digest and against the K1 route
+    (`ntt.ntt_fourstep_cols`), with both routes timed. ``k4_ms`` maps a K4
+    shape (log_n, B) to its forward kernel time."""
+    import numpy as np
+    import torch
+    from boojum_tpu_torch.field import goldilocks as gl
+    from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    from boojum_tpu_torch.ntt import mxu_ntt, ntt
+    from boojum_tpu_torch.ntt import pallas_ntt as pn
+
+    with open(os.path.join(ROOT, "boojum_tpu_torch", "data",
+                           "ntt_2e24_digest.json")) as f:
+        ref = json.load(f)
+    n, b = ref["shape"]
+    log_n = n.bit_length() - 1
+    x = gl.from_u64(np.random.default_rng(ref["seed"]).integers(
+        0, gl.ORDER, (n, b), dtype=np.uint64), "cuda")
+
+    for mod in (mxu_ntt, pp, pn):  # counts of the NTT path only
+        mod.LAUNCHES = 0
+        mod.PLAIN_CUDA_CALLS = 0
+    out = pn.ntt_any(x, log_n)
+    torch.cuda.synchronize()
+    launches = pn.LAUNCHES
+    plain_cuda = (mxu_ntt.PLAIN_CUDA_CALLS, pp.PLAIN_CUDA_CALLS,
+                  pn.PLAIN_CUDA_CALLS)
+    log("ntt path (%d, %d): ntt_small launches %d, ntt_stage %d, poseidon2 "
+        "%d; plain versions on CUDA: %s"
+        % (n, b, launches, mxu_ntt.LAUNCHES, pp.LAUNCHES, plain_cuda))
+    if launches != 4 or log_n != 24:
+        raise AssertionError("ntt_any at 2^24 should launch ntt_small 4 "
+                             "times, got %d at 2^%d" % (launches, log_n))
+    if any(plain_cuda):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    host = gl.to_u64(out)
+    digest = hashlib.sha256(host.astype("<u8").tobytes()).hexdigest()
+    log("ntt path output sha256 %s (reference %s, %s)"
+        % (digest, ref["output_u64_sha256"], ref["function"]))
+    if digest != ref["output_u64_sha256"]:
+        rows = [[str(int(v)) for v in host[r]] for r in (0, 1)]
+        raise AssertionError("ntt_any output differs from the reference "
+                             "(rows 0-1 %s equal the reference's)"
+                             % ("" if rows == ref["rows_0_1"] else "do not"))
+    del host
+    k1_out = ntt.ntt_fourstep_cols(x)
+    if not torch.equal(out, k1_out):
+        raise AssertionError("ntt_any differs from ntt.ntt_fourstep_cols")
+    log("ntt path: ntt_any equals the K1 route ntt.ntt_fourstep_cols")
+    del out, k1_out
+
+    ms_k4 = cuda_ms(lambda: pn.ntt_any(x, log_n), 3)
+    ms_k1 = cuda_ms(lambda: ntt.ntt_fourstep_cols(x), 3)
+    # One K4-route call at 2^24 splits 2^12 x 2^12, and each 2^12 pass
+    # 2^9 x 2^3: 4 kernel launches, 3 cross-twiddle multiplies (2 inner on
+    # (512, 8, 2^15), 1 outer on (4096, 4096, 8)) and 6 transpose copies
+    # (4 inner, 2 outer), each pass over all 2^27 elements. Time each part
+    # alone on the same data.
+    inner, outer = x.view(512, 8, -1), x.view(4096, 4096, b)
+    tw_in = gl.from_u64(ntt.fourstep_twiddles_host(9, 3), "cuda")[:, :, None]
+    tw_out = pn._fourstep_twiddles_device(12, 12, x.device)[:, :, None]
+    parts = dict(
+        kernels=2 * k4_ms[(9, n * b // 512)] + 2 * k4_ms[(3, n * b // 8)],
+        mul_inner=2 * cuda_ms(lambda: gl.mul(inner, tw_in), 3),
+        mul_outer=cuda_ms(lambda: gl.mul(outer, tw_out), 3),
+        transpose_inner=4 * cuda_ms(
+            lambda: inner.transpose(0, 1).reshape(8, -1), 10),
+        transpose_outer=2 * cuda_ms(
+            lambda: outer.transpose(0, 1).reshape(4096, -1), 10))
+    b_ms, _ = bound(13 * 2 * n * b * 8, 0)
+    log("ntt path ntt_any (K4 route): %.3f ms per call, %.3f ms per 2^%d "
+        "transform, %.2f NTT/s; byte bound of its 4 kernel passes + 3 twiddle "
+        "multiplies + 6 transposes %.3f ms"
+        % (ms_k4, ms_k4 / b, log_n, b * 1e3 / ms_k4, b_ms))
+    log("ntt path split per call (parts timed alone, ms): " + json.dumps(
+        {k: round(v, 4) for k, v in parts.items()}))
+    # the K1 route uploads its (256, 2^16) cross-twiddle table on every call
+    ms_up = cuda_ms(lambda: gl.from_u64(ntt.fourstep_twiddles_host(8, 16),
+                                        "cuda"), 3)
+    log("ntt path ntt_fourstep_cols (K1 route): %.3f ms per call, %.3f ms "
+        "per transform, %.2f NTT/s; of which its twiddle upload %.3f ms"
+        % (ms_k1, ms_k1 / b, b * 1e3 / ms_k1, ms_up))
+    return launches
+
+
 def flagship():
     """Synthesis, setup, one cold and three warm proves on the card."""
     import numpy as np
@@ -233,16 +366,21 @@ def main():
         return 1
     from boojum_tpu_torch.utils import cuda_build
 
+    card = card_line()  # name, power.limit as nvidia-smi prints them
     t0 = time.time()
     cuda_build.build_all(verbose=True)
     log("build: %.1f s (%s)" % (time.time() - t0, ", ".join(cuda_build.KERNELS)))
 
     rng = np.random.default_rng(7)
-    ntt_res, p2_res = [], []
+    ntt_res, p2_res, k4_res = [], [], []
     check_ntt_stage(rng, ntt_res)
     check_poseidon2(rng, p2_res)
     launches = flagship()
+    check_ntt_small(rng, k4_res)
+    k4_launches = ntt_path({(r["log_n"], r["b"]): r["ms"] for r in k4_res
+                            if not r["inverse"]})
     k1, k2 = ntt_res[0], p2_res[0]
+    k4 = next(r for r in k4_res if (r["log_n"], r["b"]) == (9, 1 << 18))
     kernels = [
         dict(name="ntt_stage", route="cuda",
              source="boojum_tpu_torch/csrc/ntt_stage.cu",
@@ -256,8 +394,14 @@ def main():
              launches=launches[1], max_abs_err=max(r["err"] for r in p2_res),
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None),
+        dict(name="ntt_small", route="cuda",
+             source="boojum_tpu_torch/csrc/ntt_small.cu",
+             replaces="boojum_tpu/ntt/pallas_ntt.py:52",
+             launches=k4_launches, max_abs_err=max(r["err"] for r in k4_res),
+             ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by=k4["bound_by"], library_ms=None),
     ]
-    log(card_line())  # name, power.limit as nvidia-smi prints them
+    log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

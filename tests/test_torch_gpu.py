@@ -1,6 +1,6 @@
-"""GPU-only check of the port: a whole small proof on the card against the
-same proof on the CPU (`chip_smoke.py` holds each kernel against its plain
-version at the flagship's shapes). It skips without a GPU. This file imports
+"""GPU-only checks of the port: a whole small proof, and the standalone NTT
+entry point, on the card against the same calls on the CPU (`chip_smoke.py`
+holds each kernel against its plain version at the main paths' shapes). It skips without a GPU. This file imports
 no JAX, so on the GPU machine (which has none) it runs without the suite's
 conftest:
 
@@ -17,6 +17,7 @@ from boojum_tpu_torch.cs.gates import (ConstantsAllocatorGate, FmaGate,
                                        NopGate, PublicInputGate, ReductionGate)
 from boojum_tpu_torch.cs.setup import create_base_setup
 from boojum_tpu_torch.field import goldilocks as gl
+from boojum_tpu_torch.ntt import pallas_ntt
 from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                      create_device_setup)
 from boojum_tpu_torch.prover.proof import proof_to_json
@@ -72,3 +73,12 @@ def test_small_proof_on_gpu_equals_cpu(cuda):
         proofs.append(proof_to_json(DeviceProver(cs, art, cfg, device=device)
                                     .prove("poseidon", "poseidon2")))
     assert proofs[0] == proofs[1]
+
+
+def test_ntt_any_on_gpu_equals_cpu(cuda):
+    x = np.random.default_rng(6).integers(0, P, (1 << 14, 3), dtype=np.uint64)
+    got = pallas_ntt.ntt_any(gl.from_u64(x, cuda), 14)
+    want = pallas_ntt.ntt_any(gl.from_u64(x), 14)
+    assert np.array_equal(gl.to_u64(got), gl.to_u64(want))
+    with pytest.raises(ValueError):  # beyond the kernel's shared memory
+        pallas_ntt.ntt_small(gl.from_u64(np.zeros((1 << 13, 1)), cuda), 13)
