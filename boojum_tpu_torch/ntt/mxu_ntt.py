@@ -7,13 +7,16 @@ in, natural out, times 1/R), optionally with the four-step cross twiddle
 ``tw[r, l % W]`` multiplied into the output (forward) or the input
 (``tw_pre``, inverse). On a CUDA tensor it launches the hand-written Hopper
 kernel ``csrc/ntt_stage.cu``, which replaces the TPU's byte-digit matrix-unit
-kernel (`boojum_tpu/ntt/mxu_ntt.py:_mxu_kernel_v2`) with in-shared-memory
-Goldilocks butterflies; on a CPU tensor it runs `ntt_stage_plain`, the same
-function in plain torch. Outputs are canonical and bit-identical either way.
+kernel (`boojum_tpu/ntt/mxu_ntt.py:_mxu_kernel_v2`) with Goldilocks
+butterflies in registers and one exchange through shared memory; on a CPU
+tensor it runs `ntt_stage_plain`, the same function in plain torch. The
+twiddle width W must be a power of two. Outputs are canonical and
+bit-identical either way.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -28,6 +31,7 @@ from .ntt import bitreverse_indices, get_plan, intt_cols, ntt_cols
 # tensor (chip_smoke.py reads both around the flagship prove)
 LAUNCHES = 0
 PLAIN_CUDA_CALLS = 0
+SHAPES = collections.Counter()  # launches by (R, M, inverse, twmode, W)
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,9 +107,11 @@ def _check(x: torch.Tensor, tw):
     if r not in (128, 256):
         raise ValueError("ntt stage radix must be 128 or 256, got %d" % r)
     if tw is not None:
+        w = tw.shape[1] if tw.dim() == 2 else 0
         if tw.dtype != torch.int64 or tw.dim() != 2 or tw.shape[0] != r \
-                or m % tw.shape[1]:
-            raise ValueError("cross twiddle must be int64 (R, W) with W | M")
+                or w <= 0 or w & (w - 1) or m % w:
+            raise ValueError("cross twiddle must be int64 (R, W) with W a "
+                             "power of two dividing M")
         if tw.device != x.device:
             raise ValueError("cross twiddle is on %s, input on %s"
                              % (tw.device, x.device))
@@ -138,4 +144,5 @@ def ntt_cols_matmul(x: torch.Tensor, inverse: bool = False,
             scale, cuda_build.stream_handle(x))
     cuda_build.check(rc, "ntt_stage")
     LAUNCHES += 1
+    SHAPES[(r, m, bool(inverse), twmode, 0 if tw is None else tw.shape[1])] += 1
     return y

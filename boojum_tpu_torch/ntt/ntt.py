@@ -191,6 +191,14 @@ def fourstep_twiddles_host(log_n1: int, log_n2: int,
                      for p1 in range(n1)])
 
 
+@functools.lru_cache(maxsize=None)
+def fourstep_twiddles_device(log_n1: int, log_n2: int, inverse: bool,
+                             device) -> torch.Tensor:
+    """`fourstep_twiddles_host` on ``device``, made and uploaded once per
+    (shape, direction, device) and kept there (128 MB at 2^24)."""
+    return gl.from_u64(fourstep_twiddles_host(log_n1, log_n2, inverse), device)
+
+
 def _pass_tw_fwd(xv, log_r: int, tw):
     """Forward pass + cross twiddle: stage(xv)[r, l] * tw[r, l % W]."""
     if log_r in (7, 8):
@@ -220,7 +228,7 @@ def ntt_fourstep_cols(x: torch.Tensor) -> torch.Tensor:
     log_n1 = _fourstep_split(log_n)
     log_n2 = log_n - log_n1
     n1, n2 = 1 << log_n1, 1 << log_n2
-    tw = gl.from_u64(fourstep_twiddles_host(log_n1, log_n2), x.device)
+    tw = fourstep_twiddles_device(log_n1, log_n2, False, x.device)
     xv = x.reshape(n1, n2, b).transpose(1, 2).reshape(n1, b * n2)
     s1 = _pass_tw_fwd(xv, log_n1, tw)  # rows p1, lanes (c, j2)
     s1t = s1.reshape(n1, b, n2).permute(2, 1, 0).reshape(n2, b * n1)
@@ -236,7 +244,7 @@ def intt_fourstep_cols(y: torch.Tensor) -> torch.Tensor:
     log_n1 = _fourstep_split(log_n)
     log_n2 = log_n - log_n1
     n1, n2 = 1 << log_n1, 1 << log_n2
-    wi = gl.from_u64(fourstep_twiddles_host(log_n1, log_n2, True), y.device)
+    wi = fourstep_twiddles_device(log_n1, log_n2, True, y.device)
     s2t = y.reshape(n1, n2, b).permute(1, 2, 0).reshape(n2, b * n1)
     s1t = _pass_ntt(s2t, log_n2, inverse=True)  # rows j2, lanes (c, p1)
     s1 = s1t.reshape(n2, b, n1).permute(2, 1, 0).reshape(n1, b * n2)

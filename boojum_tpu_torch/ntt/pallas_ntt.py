@@ -28,7 +28,7 @@ import torch
 from ..field import goldilocks as gl
 from ..field.goldilocks import ORDER
 from ..utils import npgl
-from .ntt import fourstep_twiddles_host, get_plan, intt_cols, ntt_cols
+from .ntt import fourstep_twiddles_device, get_plan, intt_cols, ntt_cols
 
 # launches of the CUDA kernel, and calls of the plain version on a CUDA
 # tensor (chip_smoke.py reads both around the NTT path)
@@ -57,12 +57,6 @@ def _stage_tables_host(log_n: int, inverse: bool) -> np.ndarray:
 def _stage_tables_device(log_n: int, inverse: bool, device) -> torch.Tensor:
     """The stage table on ``device``, uploaded once per device."""
     return gl.from_u64(_stage_tables_host(log_n, inverse), device)
-
-
-@functools.lru_cache(maxsize=None)
-def _fourstep_twiddles_device(log_n1: int, log_n2: int, device) -> torch.Tensor:
-    """The (n1, n2) cross twiddles on ``device``, uploaded once per device."""
-    return gl.from_u64(fourstep_twiddles_host(log_n1, log_n2), device)
 
 
 def ntt_small_plain(x: torch.Tensor, log_n: int, inverse: bool = False):
@@ -136,7 +130,7 @@ def ntt_fourstep(x: torch.Tensor, log_n: int, log_n1: int = None):
     n1, n2 = 1 << log_n1, 1 << log_n2
     # pass 1: NTT_{n1} over j1 (the slow index of j), batched over (j2, c)
     s1 = ntt_any(x.reshape(n1, n2 * b), log_n1).reshape(n1, n2, b)
-    s1 = gl.mul(s1, _fourstep_twiddles_device(log_n1, log_n2, x.device)
+    s1 = gl.mul(s1, fourstep_twiddles_device(log_n1, log_n2, False, x.device)
                 [:, :, None])
     # pass 2: NTT_{n2} over j2, moved to axis 0
     s2 = ntt_any(s1.transpose(0, 1).reshape(n2, n1 * b), log_n2)

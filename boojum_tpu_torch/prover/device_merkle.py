@@ -2,10 +2,11 @@
 """Poseidon2 Merkle-cap trees and FRI on the device.
 
 Reference behavior: oracle construction (src/cs/oracle/merkle_tree.rs:78-176)
-and FRI folding (src/cs/implementations/fri/mod.rs:49,362). Every leaf hash
-and node layer is one batched permutation, `permutation_stacked_fast` (the
-Hopper `poseidon2_permute` kernel on the GPU); the layers stay on the
-device, and only caps and queried paths cross to the host.
+and FRI folding (src/cs/implementations/fri/mod.rs:49,362). The leaf hashes
+of a tree are one `pallas_poseidon2.leaf_hashes` call and each node layer one
+`pallas_poseidon2.node_layer` call (on the GPU one launch each of the Hopper
+`poseidon2_leaf_hashes` and `poseidon2_node_layer` kernels); the layers stay
+on the device, and only caps and queried paths cross to the host.
 """
 
 from __future__ import annotations
@@ -16,48 +17,18 @@ import torch
 from ..field import extension as ext2
 from ..field import goldilocks as gl
 from ..field.goldilocks import MULTIPLICATIVE_GENERATOR, ORDER
-from ..hash.pallas_poseidon2 import permutation_stacked_fast
+from ..hash.pallas_poseidon2 import leaf_hashes, node_layer
 from ..utils import npgl
 from .fri import FriResult, interpolate_final_host
 from .proof import OracleQuery
 
-RATE = 8
-CAP = 4
-
-
-def _pad_cols_to_rate(cols: torch.Tensor) -> torch.Tensor:
-    k, m = cols.shape
-    pad = (-k) % RATE
-    if pad:
-        return torch.cat([cols, cols.new_zeros((pad, m))])
-    return cols
-
-
-def _leaf_hashes(cols: torch.Tensor) -> torch.Tensor:
-    """cols (k, m), k a multiple of 8 -> leaf hashes (4, m): overwrite-mode
-    absorption of each rate-8 block, one permutation per block."""
-    k, m = cols.shape
-    assert k % RATE == 0
-    st = cols.new_zeros((12, m))
-    for b in range(k // RATE):
-        st = permutation_stacked_fast(
-            torch.cat([cols[b * RATE:(b + 1) * RATE], st[RATE:]]))
-    return st[:CAP]
-
-
-def _node_layer(cur: torch.Tensor) -> torch.Tensor:
-    """(4, m) -> (4, m/2): hash (left, right) sibling pairs."""
-    m = cur.shape[1]
-    st = torch.cat([cur[:, 0::2], cur[:, 1::2], cur.new_zeros((4, m // 2))])
-    return permutation_stacked_fast(st)[:CAP]
-
 
 def build_device_tree(cols: torch.Tensor, cap_size: int) -> "DeviceTree":
     """Poseidon2 Merkle-cap tree of leaf columns (k, m); leaf i is column i."""
-    cur = _leaf_hashes(_pad_cols_to_rate(cols))
+    cur = leaf_hashes(cols)
     layers = [cur]
     while cur.shape[1] > cap_size:
-        cur = _node_layer(cur)
+        cur = node_layer(cur)
         layers.append(cur)
     return DeviceTree(layers)
 

@@ -8,7 +8,8 @@ the reference `DeviceProver`'s), with every column-sized array a tensor on
 permutation grand product, lookup A/B polys); the quotient over the flat
 (qd·n) domain; its coset iNTT; evaluations at z, z·ω and 0; DEEP; FRI; and
 the query openings. NTTs run through the `ntt_stage` kernel and every Merkle
-tree through the `poseidon2_permute` kernel on the GPU.
+tree through the `poseidon2_leaf_hashes` and `poseidon2_node_layer` kernel
+entries on the GPU.
 
 Not ported, and raising NotImplementedError: general-purpose lookup mode,
 the device transcript, `pow_bits > 0`, and tree hashers other than

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,8 +35,11 @@ _SIGNATURES = {
         "ntt_stage": [_P, _P, _P, _P, _I, _LL, _I, _I, _LL, _ULL, _P],
     },
     "poseidon2": {
-        "poseidon2_set_constants": [_P, _P],  # round constants, diagonal
+        "poseidon2_set_constants": [_P, _P],  # round constants, shifts
         "poseidon2_permute": [_P, _P, _LL, _P],  # in, out, batch, stream
+        # cols, out, k, m, row stride of cols, stream
+        "poseidon2_leaf_hashes": [_P, _P, _I, _LL, _LL, _P],
+        "poseidon2_node_layer": [_P, _P, _LL, _P],  # cur, out, m, stream
     },
     "ntt_small": {
         # x, y, stage table, log_n, batch, inverse, 1/n scale, stream
@@ -67,34 +71,52 @@ def _stale(name: str) -> bool:
     return any(os.path.getmtime(s) > os.path.getmtime(out) for s in srcs)
 
 
-def build_all(verbose: bool = False) -> float:
-    """Compile every stale kernel library in parallel; returns seconds."""
-    todo = [k for k in KERNELS if _stale(k)]
-    if not todo:
-        return 0.0
-    os.makedirs(BUILD, exist_ok=True)
+def build(names, csrc: str = CSRC, out_dir: str = BUILD, verbose: bool = False
+          ) -> float:
+    """Compile ``csrc/<name>.cu`` into ``out_dir/lib<name>.so`` for each of
+    ``names``, all ``nvcc`` processes started together; returns seconds."""
+    os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.time()
     procs = []
-    for name in todo:
-        tmp = _lib_path(name) + ".tmp"
+    for name in names:
+        out = os.path.join(out_dir, "lib%s.so" % name)
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-I", CSRC, "-o", tmp, os.path.join(CSRC, name + ".cu")]
-        procs.append((name, tmp, subprocess.Popen(
+               "-I", csrc, "-o", out + ".tmp", os.path.join(csrc, name + ".cu")]
+        procs.append((name, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
-    for name, tmp, proc in procs:
-        out, _ = proc.communicate()
+    for name, out, proc in procs:
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append("%s:\n%s" % (name, out))
+            errors.append("%s:\n%s" % (name, log))
             continue
-        os.replace(tmp, _lib_path(name))
+        os.replace(out + ".tmp", out)
         if verbose:
-            print("[nvcc %s]\n%s" % (name, out.strip()), flush=True)
+            print("[nvcc %s, done at %.1f s]\n%s"
+                  % (name, time.time() - t0, log.strip()), flush=True)
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return time.time() - t0
+
+
+def build_all(verbose: bool = False) -> float:
+    """Compile every stale kernel library of the package; returns seconds."""
+    todo = [k for k in KERNELS if _stale(k)]
+    return build(todo, verbose=verbose) if todo else 0.0
+
+
+def open_lib(path: str, name: str) -> ctypes.CDLL:
+    """Load the library ``path`` built from ``csrc/<name>.cu`` and give each
+    of its C entry points its argument types. An entry the library lacks (a
+    library built from older sources) is left out."""
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in _SIGNATURES[name].items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -102,12 +124,72 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all()
-        lib = ctypes.CDLL(_lib_path(name))
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = _LIBS[name] = open_lib(_lib_path(name), name)
     return lib
+
+
+def sass(lib_path: str) -> dict:
+    """The SASS of every kernel in a built library, from ``cuobjdump -sass``:
+    kernel (mangled) name -> list of (address, opcode, instruction text)."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    kernels, cur = {}, None
+    for line in out.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            cur = kernels.setdefault(head.group(1), [])
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if ins and cur is not None:
+            text = ins.group(2)
+            opcode = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+            cur.append((int(ins.group(1), 16), opcode, text))
+    return kernels
+
+
+# Integer-pipe opcodes (before the first '.'): what a Goldilocks kernel's
+# arithmetic compiles to.
+INT_OPCODES = {"IMAD", "IADD3", "IADD", "ISETP", "LOP3", "SHF", "SEL", "LEA",
+               "IMNMX", "PRMT", "IABS", "POPC", "FLO", "BMSK", "SGXT", "ISCADD",
+               "IMUL", "LOP", "SHL", "SHR", "UIMAD", "UIADD3", "ULOP3", "USHF",
+               "USEL", "ULEA", "UISETP"}
+
+
+# Trip counts of the Poseidon2 kernels' round loops, in address order: 4 full,
+# 22 partial and 4 full rounds.
+P2_ROUND_TRIPS = (4, 22, 4)
+
+
+def sass_summary(instrs, trips=()) -> dict:
+    """Counts of one kernel's SASS: all instructions, integer-pipe ones,
+    IMADs, and its loops (backward branches), each with the integer-pipe
+    instructions of its body. Given ``trips``, the trip counts of the
+    innermost loops in address order, ``integer_per_pass`` is the number of
+    integer-pipe instructions one pass through the code executes: each
+    innermost loop body ``trips`` times, every other instruction once."""
+    is_int = [op.split(".")[0] in INT_OPCODES for _, op, _ in instrs]
+    loops = []
+    for addr, op, text in instrs:
+        target = re.search(r"0x([0-9a-f]+)", text) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            start = int(target.group(1), 16)
+            loops.append(dict(start=start, end=addr, integer=sum(
+                i for (a, _, _), i in zip(instrs, is_int) if start <= a <= addr)))
+    out = dict(total=len(instrs), integer=sum(is_int),
+               imad=sum(op.split(".")[0] in ("IMAD", "UIMAD")
+                        for _, op, _ in instrs),
+               loops=loops)
+    if trips:
+        inner = sorted((lp for lp in loops if not any(
+            o is not lp and lp["start"] <= o["start"] and o["end"] <= lp["end"]
+            for o in loops)), key=lambda lp: lp["start"])
+        if len(inner) != len(trips):
+            raise ValueError("%d innermost loops, expected %d"
+                             % (len(inner), len(trips)))
+        out["integer_per_pass"] = out["integer"] + sum(
+            (t - 1) * lp["integer"] for t, lp in zip(trips, inner))
+    return out
 
 
 def stream_handle(t) -> int:

@@ -1,25 +1,42 @@
 """Chip smoke test of the PyTorch/CUDA port on one GPU.
 
-Builds the port's CUDA kernels from `boojum_tpu_torch/csrc/`, holds each one
-bit-exactly against its plain PyTorch version on the card at the shapes of
-the flagship proof, then proves the flagship 8 kB SHA-256 circuit (2^16 rows,
-LDE 8, cap 16, Poseidon transcript, Poseidon2 trees) through the port's entry
-points and requires the sha256 of `proof_to_json(proof)` to equal the
-reference digest committed in `boojum_tpu_torch/data/flagship_proof_digest.json`
-(made by `scripts/torch_reference_digest.py` from the JAX package). Then it
-holds the all-stage small NTT kernel against its plain version and runs the
-standalone NTT entry point `pallas_ntt.ntt_any` at (2^24, 8), whose output
-must equal the digest in `boojum_tpu_torch/data/ntt_2e24_digest.json` (made
-by `scripts/torch_reference_ntt_digest.py`) and the radix-256 route
-`ntt.ntt_fourstep_cols`.
+Builds the port's CUDA kernels from `boojum_tpu_torch/csrc/`, prints each
+kernel's SASS instruction counts (`cuobjdump -sass`), and holds every kernel
+entry bit-exactly against its plain PyTorch version on the card: `ntt_stage`
+at every template instance (R 128 / 256 x forward / inverse x twiddle mode
+0 / 1 / 2) and at a ragged width, `poseidon2_permute`,
+`poseidon2_leaf_hashes` and `poseidon2_node_layer` at the trees' shapes;
+every shape it times is held against the plain version first. Then it drives
+three paths, each with the launch counts set to 0 just before it and read
+just after:
 
-    python3 chip_smoke.py
+- the flagship: proves the 8 kB SHA-256 circuit (2^16 rows, LDE 8, cap 16,
+  Poseidon transcript, Poseidon2 trees) through the port's entry points and
+  requires the sha256 of `proof_to_json(proof)` to equal the reference
+  digest in `boojum_tpu_torch/data/flagship_proof_digest.json` (made by
+  `scripts/torch_reference_digest.py` from the JAX package). It records the
+  kernel launches of one prove by shape, holds each shape bit-exactly
+  against its plain version, times it and prints, per kernel, the sum over
+  a prove of launches x time and of launches x (time - bound);
+- the standalone NTT: after holding the all-stage small NTT kernel against
+  its plain version, runs `pallas_ntt.ntt_any` at (2^24, 8), whose output
+  must equal the digest in `boojum_tpu_torch/data/ntt_2e24_digest.json`
+  (made by `scripts/torch_reference_ntt_digest.py`) and the radix-256 route
+  `ntt.ntt_fourstep_cols`;
+- the batch permutation: `pallas_poseidon2.permutation_stacked_fast` on 2^20
+  random states, against its plain version. No path of the port calls it
+  since the trees hash through the leaf and node entries; this phase keeps
+  the `poseidon2_permute` entry launched and checked.
+
+    python3 chip_smoke.py                 # everything, as above
+    python3 chip_smoke.py --kernels-only  # build, SASS, kernel checks; stop
 
 Prints the card's `name, power.limit`, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, with no result line, when
 CUDA or nvidia-smi is unavailable or any phase fails.
 """
 
+import collections
 import hashlib
 import json
 import os
@@ -38,6 +55,10 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 # least the 4 32x32->64-bit partial products of its 64x64-bit product.
 H100_IMAD_PER_S = 67e12 / 2 / 2
 IMAD_PER_FIELD_MUL = 4
+# s-box multiplies of one Poseidon2 permutation: 8 full rounds x 12 x 4,
+# 22 partial rounds x 4
+P2_MULS = 8 * 12 * 4 + 22 * 4
+P2_REPLACES = "boojum_tpu/hash/pallas_poseidon2.py:43"
 
 
 def log(msg):
@@ -81,104 +102,223 @@ def max_abs_err(a, b):
     import numpy as np
     from boojum_tpu_torch.field import goldilocks as gl
     ha, hb = gl.to_u64(a), gl.to_u64(b)
+    if ha.shape != hb.shape:
+        raise AssertionError("shapes differ: %s vs %s" % (ha.shape, hb.shape))
     if np.array_equal(ha, hb):
         return 0.0
     return float(np.max(np.abs(ha.astype(np.float64) - hb.astype(np.float64))))
 
 
-def check_ntt_stage(rng, results):
-    """K1 against its plain version at the flagship's shapes."""
+def rand_field(rng, shape):
     import numpy as np
     from boojum_tpu_torch.field import goldilocks as gl
-    from boojum_tpu_torch.ntt import mxu_ntt, ntt
-
-    P = gl.ORDER
-    cases = [  # (R, M, inverse, twmode, where the prove runs it)
-        (256, 1 << 17, False, 1, "LDE first pass, (2^16, 8 cosets x 64 cols)"),
-        (256, 1 << 17, False, 0, "LDE second pass"),
-        (256, 1 << 14, True, 0, "monomials first pass, (2^16, 64 cols)"),
-        (256, 1 << 14, True, 2, "monomials second pass"),
-        (128, 1 << 17, False, 0, "radix-128 stage (2^14-row domains)"),
-        (128, 1 << 17, True, 2, "radix-128 inverse with twiddle"),
-    ]
-    for (r, m, inverse, twmode, where) in cases:
-        x = gl.from_u64(rng.integers(0, P, (r, m), dtype=np.uint64), "cuda")
-        tw = None
-        if twmode:
-            log_r = r.bit_length() - 1
-            w = ntt.fourstep_twiddles_host(log_r, 8, inverse)
-            tw = gl.from_u64(w, "cuda")
-        kw = dict(inverse=inverse, tw=tw, tw_pre=twmode == 2)
-        got = mxu_ntt.ntt_cols_matmul(x, **kw)
-        want = mxu_ntt.ntt_stage_plain(x, **kw)
-        err = max_abs_err(got, want)
-        if err != 0.0:
-            raise AssertionError("ntt_stage R=%d M=%d inverse=%s twmode=%d "
-                                 "differs from its plain version (max abs "
-                                 "err %g)" % (r, m, inverse, twmode, err))
-        ms = cuda_ms(lambda: mxu_ntt.ntt_cols_matmul(x, **kw), 20)
-        plain_ms = cuda_ms(lambda: mxu_ntt.ntt_stage_plain(x, **kw), 2)
-        log_r = r.bit_length() - 1
-        nbytes = 2 * r * m * 8 + (tw.numel() * 8 if tw is not None else 0)
-        muls = (r // 2) * log_r * m + r * m * (int(inverse) + int(twmode > 0))
-        b_ms, b_by = bound(nbytes, muls)
-        log("ntt_stage R=%d M=%d inverse=%d twmode=%d (%s): bit-equal, "
-            "%.4f ms kernel, %.3f ms plain, bound %.4f ms (%s), %.1f%% of bound"
-            % (r, m, inverse, twmode, where, ms, plain_ms, b_ms, b_by,
-               100 * b_ms / ms))
-        results.append(dict(r=r, m=m, inverse=inverse, twmode=twmode, ms=ms,
-                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                            err=err))
+    return gl.from_u64(rng.integers(0, gl.ORDER, shape, dtype=np.uint64),
+                       "cuda")
 
 
-def check_poseidon2(rng, results):
-    """K2 against its plain version at one Merkle layer's batch sizes."""
-    import numpy as np
+def require_equal(got, want, what):
+    err = max_abs_err(got, want)
+    if err != 0.0:
+        raise AssertionError("%s differs from its plain version (max abs err "
+                             "%g)" % (what, err))
+    return err
+
+
+# ---------------------------------------------------------------------------
+# SASS
+# ---------------------------------------------------------------------------
+
+
+def sass_report():
+    """Instruction counts of the built kernels. The Poseidon2 entries roll
+    their round loops (each round body unrolled), so their integer
+    instructions per permutation count each round loop's body times its
+    trips; the leaf entry's count is for one absorbed rate block. The
+    ntt_stage instances are straight-line code over 32 elements a thread,
+    so theirs is per element."""
+    from boojum_tpu_torch.utils import cuda_build
+
+    report = {}
+    for lib in ("poseidon2", "ntt_stage"):
+        trips = cuda_build.P2_ROUND_TRIPS if lib == "poseidon2" else ()
+        for kname, instrs in sorted(
+                cuda_build.sass(cuda_build._lib_path(lib)).items()):
+            s = cuda_build.sass_summary(instrs, trips)
+            short = kname
+            for tag in ("permute_kernel", "leaf_kernel", "node_kernel",
+                        "ntt_stage_kernel"):
+                if tag in kname:
+                    short = tag + kname.split(tag, 1)[1][:14]
+            report[short] = s
+            per = " (%d integer per permutation)" % s["integer_per_pass"] \
+                if trips else " (%.1f integer per element)" % (
+                    s["integer"] / 32)
+            log("sass %s: %d instructions, %d integer-pipe, %d IMAD, "
+                "%d loops%s" % (short, s["total"], s["integer"], s["imad"],
+                                len(s["loops"]), per))
+    return report
+
+
+# ---------------------------------------------------------------------------
+# kernel checks against the plain versions
+# ---------------------------------------------------------------------------
+
+
+def k1_args(rng, r, m, inverse, twmode, width=256):
     from boojum_tpu_torch.field import goldilocks as gl
+    from boojum_tpu_torch.ntt import ntt
+    x = rand_field(rng, (r, m))
+    tw = None
+    if twmode:
+        log_w = min(width, m).bit_length() - 1
+        tw = gl.from_u64(ntt.fourstep_twiddles_host(r.bit_length() - 1, log_w,
+                                                    inverse), "cuda")
+    return x, dict(inverse=inverse, tw=tw, tw_pre=twmode == 2)
+
+
+def k1_bound(r, m, inverse, twmode, width):
+    log_r = r.bit_length() - 1
+    nbytes = 2 * r * m * 8 + (r * width * 8 if twmode else 0)
+    muls = (r // 2) * log_r * m + r * m * (int(inverse) + int(twmode > 0))
+    return bound(nbytes, muls)
+
+
+def check_ntt_stage(rng):
+    """K1 at every template instance, and at ragged widths (odd M takes the
+    8-byte path), bit-equal to its plain version."""
+    from boojum_tpu_torch.ntt import mxu_ntt
+
+    errs = []
+    cases = [(r, 1 << 14, inv, tw) for r in (128, 256) for inv in (False, True)
+             for tw in (0, 1, 2)]
+    cases += [(r, m, inv, 0) for r in (128, 256) for m in (1000, 1001)
+              for inv in (False, True)]
+    for (r, m, inverse, twmode) in cases:
+        x, kw = k1_args(rng, r, m, inverse, twmode)
+        errs.append(require_equal(
+            mxu_ntt.ntt_cols_matmul(x, **kw), mxu_ntt.ntt_stage_plain(x, **kw),
+            "ntt_stage R=%d M=%d inverse=%d twmode=%d" % (r, m, inverse,
+                                                          twmode)))
+    log("ntt_stage: bit-equal at %d cases (R 128/256 x inverse x twmode "
+        "0/1/2 at M = 2^14; ragged M 1000, 1001)" % len(cases))
+    return max(errs)
+
+
+def time_ntt_stage(rng, r, m, inverse, twmode, width, plain=False):
+    """K1 at one shape: bit-equal to its plain version, then timed."""
+    from boojum_tpu_torch.ntt import mxu_ntt
+    x, kw = k1_args(rng, r, m, inverse, twmode, width)
+    err = require_equal(
+        mxu_ntt.ntt_cols_matmul(x, **kw), mxu_ntt.ntt_stage_plain(x, **kw),
+        "ntt_stage R=%d M=%d inverse=%d twmode=%d W=%d"
+        % (r, m, inverse, twmode, width))
+    res = dict(err=err,
+               ms=cuda_ms(lambda: mxu_ntt.ntt_cols_matmul(x, **kw), 20))
+    if plain:
+        res["plain_ms"] = cuda_ms(lambda: mxu_ntt.ntt_stage_plain(x, **kw), 2)
+    res["bound_ms"], res["bound_by"] = k1_bound(r, m, inverse, twmode, width)
+    return res
+
+
+def check_poseidon2(rng):
+    """The three K2 entries, bit-equal to their plain versions, and timed at
+    the reported shapes. Returns {entry: (max err, timing at its shape)}."""
     from boojum_tpu_torch.hash import pallas_poseidon2 as pp
 
-    for b in (1 << 16, 1 << 20):
-        st = gl.from_u64(rng.integers(0, gl.ORDER, (12, b), dtype=np.uint64),
-                         "cuda")
-        got = pp.permutation_stacked_fast(st)
-        want = pp.permutation_plain(st)
-        err = max_abs_err(got, want)
-        if err != 0.0:
-            raise AssertionError("poseidon2 B=%d differs from its plain "
-                                 "version (max abs err %g)" % (b, err))
-        ms = cuda_ms(lambda: pp.permutation_stacked_fast(st), 20)
-        plain_ms = cuda_ms(lambda: pp.permutation_plain(st), 2)
-        # s-box multiplies: 8 full rounds x 12 x 4, 22 partial rounds x 4
-        b_ms, b_by = bound(2 * 12 * 8 * b, (8 * 12 * 4 + 22 * 4) * b)
-        log("poseidon2 B=%d: bit-equal, %.4f ms kernel (%.1f M perm/s), "
-            "%.3f ms plain, bound %.4f ms (%s), %.1f%% of bound"
-            % (b, ms, b / ms / 1e3, plain_ms, b_ms, b_by, 100 * b_ms / ms))
-        results.append(dict(b=b, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, err=err))
+    out = {}
+    errs, timing = [], None
+    for b in (1, 127, 1 << 16, 1 << 20):
+        st = rand_field(rng, (12, b))
+        errs.append(require_equal(pp.permutation_stacked_fast(st),
+                                  pp.permutation_plain(st),
+                                  "poseidon2_permute B=%d" % b))
+        if b == 1 << 16:
+            timing = time_p2(("permute", b), st, plain=True)
+    out["poseidon2_permute"] = (max(errs), timing)
+    log("poseidon2_permute: bit-equal at B = 1, 127, 2^16, 2^20")
+
+    errs = []
+    for (k, m) in ((64, 1 << 19), (8, 1 << 19), (13, 1 << 16)):
+        cols = rand_field(rng, (k, m))
+        errs.append(require_equal(pp.leaf_hashes(cols),
+                                  pp.leaf_hashes_plain(cols),
+                                  "poseidon2_leaf_hashes (%d, %d)" % (k, m)))
+        if (k, m) == (64, 1 << 19):
+            timing = time_p2(("leaf", k, m), cols, plain=True)
+    strided = rand_field(rng, (8, 1 << 12))[:, :1 << 11]  # a row stride > m
+    errs.append(require_equal(pp.leaf_hashes(strided),
+                              pp.leaf_hashes_plain(strided),
+                              "poseidon2_leaf_hashes on a strided view"))
+    out["poseidon2_leaf_hashes"] = (max(errs), timing)
+    log("poseidon2_leaf_hashes: bit-equal at (64, 2^19), (8, 2^19), "
+        "(13, 2^16) padded, and a strided (8, 2^11) view")
+
+    errs = []
+    for m in (1 << 19, 32):
+        cur = rand_field(rng, (4, m))
+        errs.append(require_equal(pp.node_layer(cur), pp.node_layer_plain(cur),
+                                  "poseidon2_node_layer m=%d" % m))
+        if m == 1 << 19:
+            timing = time_p2(("node", m), cur, plain=True)
+    out["poseidon2_node_layer"] = (max(errs), timing)
+    log("poseidon2_node_layer: bit-equal at m = 2^19, 32")
+    return out
+
+
+def p2_bound(shape):
+    kind = shape[0]
+    if kind == "permute":
+        b = shape[1]
+        return bound(2 * 12 * 8 * b, P2_MULS * b)
+    if kind == "leaf":
+        k, m = shape[1:]
+        return bound((k + 4) * m * 8, -(-k // 8) * P2_MULS * m)
+    m = shape[1]
+    return bound((4 * m + 2 * m) * 8, P2_MULS * (m // 2))
+
+
+def time_p2(shape, x, plain=False):
+    """A K2 entry at one shape: bit-equal to its plain version, then
+    timed."""
+    from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    fn, plain_fn = {"permute": (pp.permutation_stacked_fast,
+                                pp.permutation_plain),
+                    "leaf": (pp.leaf_hashes, pp.leaf_hashes_plain),
+                    "node": (pp.node_layer, pp.node_layer_plain)}[shape[0]]
+    err = require_equal(fn(x), plain_fn(x), "poseidon2 %s" % (shape,))
+    res = dict(err=err, ms=cuda_ms(lambda: fn(x), 20))
+    if plain:
+        res["plain_ms"] = cuda_ms(lambda: plain_fn(x), 2)
+    res["bound_ms"], res["bound_by"] = p2_bound(shape)
+    n = x.shape[1] // (2 if shape[0] == "node" else 1)
+    log("%s %s: bit-equal, %.4f ms kernel (%.1f M perm/s%s), bound %.4f ms "
+        "(%s), %.1f%% of bound" % (
+            {"permute": "poseidon2_permute", "leaf": "poseidon2_leaf_hashes",
+             "node": "poseidon2_node_layer"}[shape[0]], shape[1:], res["ms"],
+            n * (-(-x.shape[0] // 8) if shape[0] == "leaf" else 1)
+            / res["ms"] / 1e3,
+            ", plain %.3f ms" % res["plain_ms"] if plain else "",
+            res["bound_ms"], res["bound_by"],
+            100 * res["bound_ms"] / res["ms"]))
+    return res
 
 
 def check_ntt_small(rng, results):
     """K4 against its plain version, forward and inverse: small and large n,
     batches that are not a multiple of the kernel's tile, and the two shapes
     of the NTT path, (512, 2^18) and (8, 2^24)."""
-    import numpy as np
-    from boojum_tpu_torch.field import goldilocks as gl
     from boojum_tpu_torch.ntt import pallas_ntt as pn
 
     cases = [(0, 7), (1, 1 << 20), (3, 3001), (9, 1000), (12, 1030),
              (9, 1 << 18), (3, 1 << 24)]
     for (log_n, b) in cases:
         n = 1 << log_n
-        x = gl.from_u64(rng.integers(0, gl.ORDER, (n, b), dtype=np.uint64),
-                        "cuda")
+        x = rand_field(rng, (n, b))
         for inverse in (False, True):
             got = pn.ntt_small(x, log_n, inverse)
             want = pn.ntt_small_plain(x, log_n, inverse)
-            err = max_abs_err(got, want)
-            if err != 0.0:
-                raise AssertionError("ntt_small n=%d B=%d inverse=%s differs "
-                                     "from its plain version (max abs err %g)"
-                                     % (n, b, inverse, err))
+            err = require_equal(got, want, "ntt_small n=%d B=%d inverse=%s"
+                                % (n, b, inverse))
             ms = cuda_ms(lambda: pn.ntt_small(x, log_n, inverse), 20)
             plain_ms = cuda_ms(lambda: pn.ntt_small_plain(x, log_n, inverse),
                                2)
@@ -193,6 +333,36 @@ def check_ntt_small(rng, results):
         del x, got, want
 
 
+# ---------------------------------------------------------------------------
+# paths
+# ---------------------------------------------------------------------------
+
+
+def reset_counts():
+    from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    from boojum_tpu_torch.ntt import mxu_ntt
+    from boojum_tpu_torch.ntt import pallas_ntt as pn
+    for mod in (mxu_ntt, pp, pn):
+        mod.LAUNCHES = 0
+        mod.PLAIN_CUDA_CALLS = 0
+        if hasattr(mod, "SHAPES"):
+            mod.SHAPES.clear()
+    pp.LEAF_LAUNCHES = pp.NODE_LAUNCHES = 0
+
+
+def read_counts():
+    """Launches of every kernel entry and plain calls on CUDA tensors."""
+    from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    from boojum_tpu_torch.ntt import mxu_ntt
+    from boojum_tpu_torch.ntt import pallas_ntt as pn
+    return dict(ntt_stage=mxu_ntt.LAUNCHES, poseidon2_permute=pp.LAUNCHES,
+                poseidon2_leaf_hashes=pp.LEAF_LAUNCHES,
+                poseidon2_node_layer=pp.NODE_LAUNCHES,
+                ntt_small=pn.LAUNCHES,
+                plain_on_cuda=mxu_ntt.PLAIN_CUDA_CALLS + pp.PLAIN_CUDA_CALLS
+                + pn.PLAIN_CUDA_CALLS)
+
+
 def ntt_path(k4_ms):
     """The standalone NTT entry point at 2^24 x 8: `pallas_ntt.ntt_any` (the
     K4 route) against the committed JAX digest and against the K1 route
@@ -201,8 +371,7 @@ def ntt_path(k4_ms):
     import numpy as np
     import torch
     from boojum_tpu_torch.field import goldilocks as gl
-    from boojum_tpu_torch.hash import pallas_poseidon2 as pp
-    from boojum_tpu_torch.ntt import mxu_ntt, ntt
+    from boojum_tpu_torch.ntt import ntt
     from boojum_tpu_torch.ntt import pallas_ntt as pn
 
     with open(os.path.join(ROOT, "boojum_tpu_torch", "data",
@@ -213,21 +382,16 @@ def ntt_path(k4_ms):
     x = gl.from_u64(np.random.default_rng(ref["seed"]).integers(
         0, gl.ORDER, (n, b), dtype=np.uint64), "cuda")
 
-    for mod in (mxu_ntt, pp, pn):  # counts of the NTT path only
-        mod.LAUNCHES = 0
-        mod.PLAIN_CUDA_CALLS = 0
+    reset_counts()  # counts of the NTT path only
     out = pn.ntt_any(x, log_n)
     torch.cuda.synchronize()
-    launches = pn.LAUNCHES
-    plain_cuda = (mxu_ntt.PLAIN_CUDA_CALLS, pp.PLAIN_CUDA_CALLS,
-                  pn.PLAIN_CUDA_CALLS)
-    log("ntt path (%d, %d): ntt_small launches %d, ntt_stage %d, poseidon2 "
-        "%d; plain versions on CUDA: %s"
-        % (n, b, launches, mxu_ntt.LAUNCHES, pp.LAUNCHES, plain_cuda))
-    if launches != 4 or log_n != 24:
+    counts = read_counts()
+    log("ntt path (%d, %d): launches %s" % (n, b, json.dumps(counts)))
+    if counts["ntt_small"] != 4 or log_n != 24:
         raise AssertionError("ntt_any at 2^24 should launch ntt_small 4 "
-                             "times, got %d at 2^%d" % (launches, log_n))
-    if any(plain_cuda):
+                             "times, got %d at 2^%d"
+                             % (counts["ntt_small"], log_n))
+    if counts["plain_on_cuda"]:
         raise AssertionError("a plain version ran on a CUDA tensor")
 
     host = gl.to_u64(out)
@@ -254,8 +418,8 @@ def ntt_path(k4_ms):
     # (4 inner, 2 outer), each pass over all 2^27 elements. Time each part
     # alone on the same data.
     inner, outer = x.view(512, 8, -1), x.view(4096, 4096, b)
-    tw_in = gl.from_u64(ntt.fourstep_twiddles_host(9, 3), "cuda")[:, :, None]
-    tw_out = pn._fourstep_twiddles_device(12, 12, x.device)[:, :, None]
+    tw_in = ntt.fourstep_twiddles_device(9, 3, False, x.device)[:, :, None]
+    tw_out = ntt.fourstep_twiddles_device(12, 12, False, x.device)[:, :, None]
     parts = dict(
         kernels=2 * k4_ms[(9, n * b // 512)] + 2 * k4_ms[(3, n * b // 8)],
         mul_inner=2 * cuda_ms(lambda: gl.mul(inner, tw_in), 3),
@@ -271,17 +435,57 @@ def ntt_path(k4_ms):
         % (ms_k4, ms_k4 / b, log_n, b * 1e3 / ms_k4, b_ms))
     log("ntt path split per call (parts timed alone, ms): " + json.dumps(
         {k: round(v, 4) for k, v in parts.items()}))
-    # the K1 route uploads its (256, 2^16) cross-twiddle table on every call
-    ms_up = cuda_ms(lambda: gl.from_u64(ntt.fourstep_twiddles_host(8, 16),
-                                        "cuda"), 3)
-    log("ntt path ntt_fourstep_cols (K1 route): %.3f ms per call, %.3f ms "
-        "per transform, %.2f NTT/s; of which its twiddle upload %.3f ms"
-        % (ms_k1, ms_k1 / b, b * 1e3 / ms_k1, ms_up))
-    return launches
+    log("ntt path ntt_fourstep_cols (K1 route, cross twiddles kept on the "
+        "card): %.3f ms per call, %.3f ms per transform, %.2f NTT/s"
+        % (ms_k1, ms_k1 / b, b * 1e3 / ms_k1))
+    return counts
+
+
+def per_prove_costs(rng, k1_shapes, p2_shapes):
+    """Holds every kernel shape one prove launched against its plain version,
+    times it and sums, per kernel, launches x time and launches x (time -
+    bound) over the prove. Returns the sums and each kernel's largest
+    error."""
+    totals = collections.defaultdict(lambda: [0, 0.0, 0.0])
+    errs = collections.defaultdict(float)
+    for (r, m, inverse, twmode, width), n in sorted(k1_shapes.items()):
+        t = time_ntt_stage(rng, r, m, inverse, twmode, width or 256)
+        errs["ntt_stage"] = max(errs["ntt_stage"], t["err"])
+        log("per prove: ntt_stage (R=%d, M=%d, inverse=%d, twmode=%d, W=%d) "
+            "x %d: bit-equal, %.4f ms, bound %.4f ms (%s), %.1f%% of bound"
+            % (r, m, inverse, twmode, width, n, t["ms"], t["bound_ms"],
+               t["bound_by"], 100 * t["bound_ms"] / t["ms"]))
+        tot = totals["ntt_stage"]
+        tot[0] += n
+        tot[1] += n * t["ms"]
+        tot[2] += n * (t["ms"] - t["bound_ms"])
+    names = {"permute": "poseidon2_permute", "leaf": "poseidon2_leaf_hashes",
+             "node": "poseidon2_node_layer"}
+    for shape, n in sorted(p2_shapes.items()):
+        if shape[0] == "permute":
+            x = rand_field(rng, (12, shape[1]))
+        elif shape[0] == "leaf":
+            x = rand_field(rng, shape[1:])
+        else:
+            x = rand_field(rng, (4, shape[1]))
+        log("per prove: %s x %d" % (shape, n))
+        t = time_p2(shape, x)
+        errs[names[shape[0]]] = max(errs[names[shape[0]]], t["err"])
+        tot = totals[names[shape[0]]]
+        tot[0] += n
+        tot[1] += n * t["ms"]
+        tot[2] += n * (t["ms"] - t["bound_ms"])
+        del x
+    out = {k: dict(launches=v[0], sum_ms=round(v[1], 4),
+                   lost_ms=round(v[2], 4)) for k, v in totals.items()}
+    log("per prove, by kernel (launches, sum of launches x time, sum of "
+        "launches x (time - bound)): " + json.dumps(out))
+    return out, errs
 
 
 def flagship():
-    """Synthesis, setup, one cold and three warm proves on the card."""
+    """Synthesis, setup, one cold and three warm proves on the card. Returns
+    the launch counts of the path and one prove's launches by shape."""
     import numpy as np
     import torch
     from boojum_tpu_torch.cs.setup import create_base_setup
@@ -303,9 +507,7 @@ def flagship():
     t_synth = time.time() - t0
     log("flagship synthesis %.2f s, domain %d" % (t_synth, cs.final_trace_len))
 
-    for mod in (mxu_ntt, pp):  # counts of the main path only
-        mod.LAUNCHES = 0
-        mod.PLAIN_CUDA_CALLS = 0
+    reset_counts()  # counts of the main path only
     t0 = time.time()
     sb = create_base_setup(cs)
     t_base = time.time() - t0
@@ -328,21 +530,23 @@ def flagship():
     proof, t_cold = prove()
     warm = []
     for _ in range(3):
-        before = (mxu_ntt.LAUNCHES, pp.LAUNCHES)
+        before = read_counts()
+        k1_before, p2_before = mxu_ntt.SHAPES.copy(), pp.SHAPES.copy()
         proof, t = prove()
         warm.append(t)
-    per_prove = (mxu_ntt.LAUNCHES - before[0], pp.LAUNCHES - before[1])
-    launches = (mxu_ntt.LAUNCHES, pp.LAUNCHES)
-    plain_cuda = (mxu_ntt.PLAIN_CUDA_CALLS, pp.PLAIN_CUDA_CALLS)
+    counts = read_counts()
+    per_prove = {k: counts[k] - before[k] for k in counts}
+    k1_shapes = mxu_ntt.SHAPES - k1_before
+    p2_shapes = pp.SHAPES - p2_before
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log("flagship prove cold %.3f s, warm %s s, peak device memory %.2f GB"
         % (t_cold, ", ".join("%.3f" % w for w in warm), peak_gb))
-    log("flagship launches (setup + 4 proves): ntt_stage %d, poseidon2 %d; "
-        "per prove: ntt_stage %d, poseidon2 %d; plain versions on CUDA: %s"
-        % (launches + per_prove + (plain_cuda,)))
-    if min(launches) <= 0:
-        raise AssertionError("a kernel of the main path never launched")
-    if any(plain_cuda):
+    log("flagship launches (setup + 4 proves): %s; per prove: %s"
+        % (json.dumps(counts), json.dumps(per_prove)))
+    for name in ("ntt_stage", "poseidon2_leaf_hashes", "poseidon2_node_layer"):
+        if counts[name] <= 0:
+            raise AssertionError("%s never launched on the main path" % name)
+    if counts["plain_on_cuda"]:
         raise AssertionError("a plain version ran on a CUDA tensor")
 
     text = proof_to_json(proof)
@@ -355,7 +559,27 @@ def flagship():
     prover.prove(ref["transcript"], ref["hasher"], verbose=True)
     log("flagship stage split (synced, one extra prove): " + json.dumps(
         {k: round(v, 4) for k, v in prover.last_stage_times.items()}))
-    return launches
+    return counts, k1_shapes, p2_shapes
+
+
+def permute_path(rng):
+    """The batch permutation entry point on 2^20 random states, against its
+    plain version. No path of the port calls `permutation_stacked_fast` (the
+    trees use the leaf and node entries); this phase is made up so that the
+    `poseidon2_permute` entry still launches once."""
+    import torch
+    from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    st = rand_field(rng, (12, 1 << 20))
+    reset_counts()  # counts of this path only
+    out = pp.permutation_stacked_fast(st)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log("permute path (12, 2^20): launches %s" % json.dumps(counts))
+    if counts["poseidon2_permute"] != 1 or counts["plain_on_cuda"]:
+        raise AssertionError("the permute path should launch "
+                             "poseidon2_permute once and no plain version")
+    require_equal(out, pp.permutation_plain(st), "permute path output")
+    return counts
 
 
 def main():
@@ -366,41 +590,65 @@ def main():
         return 1
     from boojum_tpu_torch.utils import cuda_build
 
+    kernels_only = "--kernels-only" in sys.argv[1:]
     card = card_line()  # name, power.limit as nvidia-smi prints them
+    log(card)
     t0 = time.time()
     cuda_build.build_all(verbose=True)
     log("build: %.1f s (%s)" % (time.time() - t0, ", ".join(cuda_build.KERNELS)))
+    sass = sass_report()
 
     rng = np.random.default_rng(7)
-    ntt_res, p2_res, k4_res = [], [], []
-    check_ntt_stage(rng, ntt_res)
-    check_poseidon2(rng, p2_res)
-    launches = flagship()
+    k1_err = check_ntt_stage(rng)
+    k1 = time_ntt_stage(rng, 256, 1 << 17, False, 1, 256, plain=True)
+    log("ntt_stage (256, 2^17) twmode 1: %.4f ms kernel, %.3f ms plain, "
+        "bound %.4f ms (%s), %.1f%% of bound"
+        % (k1["ms"], k1["plain_ms"], k1["bound_ms"], k1["bound_by"],
+           100 * k1["bound_ms"] / k1["ms"]))
+    p2 = check_poseidon2(rng)
+    if kernels_only:
+        log("chip_smoke: --kernels-only, stopping after the kernel checks")
+        return 0
+
+    counts, k1_shapes, p2_shapes = flagship()
+    costs, prove_errs = per_prove_costs(rng, k1_shapes, p2_shapes)
+    k4_res = []
     check_ntt_small(rng, k4_res)
-    k4_launches = ntt_path({(r["log_n"], r["b"]): r["ms"] for r in k4_res
-                            if not r["inverse"]})
-    k1, k2 = ntt_res[0], p2_res[0]
+    ntt_counts = ntt_path({(r["log_n"], r["b"]): r["ms"] for r in k4_res
+                           if not r["inverse"]})
+    perm_counts = permute_path(rng)
     k4 = next(r for r in k4_res if (r["log_n"], r["b"]) == (9, 1 << 18))
+
+    def row(name, source, replaces, launches, err, t):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=err, ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=None)
+
+    p2_src = "boojum_tpu_torch/csrc/poseidon2.cu"
     kernels = [
-        dict(name="ntt_stage", route="cuda",
-             source="boojum_tpu_torch/csrc/ntt_stage.cu",
-             replaces="boojum_tpu/ntt/mxu_ntt.py:339",
-             launches=launches[0], max_abs_err=max(r["err"] for r in ntt_res),
-             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
-        dict(name="poseidon2_permute", route="cuda",
-             source="boojum_tpu_torch/csrc/poseidon2.cu",
-             replaces="boojum_tpu/hash/pallas_poseidon2.py:43",
-             launches=launches[1], max_abs_err=max(r["err"] for r in p2_res),
-             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None),
-        dict(name="ntt_small", route="cuda",
-             source="boojum_tpu_torch/csrc/ntt_small.cu",
-             replaces="boojum_tpu/ntt/pallas_ntt.py:52",
-             launches=k4_launches, max_abs_err=max(r["err"] for r in k4_res),
-             ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
-             bound_by=k4["bound_by"], library_ms=None),
+        row("ntt_stage", "boojum_tpu_torch/csrc/ntt_stage.cu",
+            "boojum_tpu/ntt/mxu_ntt.py:339", counts["ntt_stage"],
+            max(k1_err, k1["err"], prove_errs["ntt_stage"]), k1),
+        row("poseidon2_permute", p2_src, P2_REPLACES,
+            perm_counts["poseidon2_permute"], *p2["poseidon2_permute"]),
+        row("ntt_small", "boojum_tpu_torch/csrc/ntt_small.cu",
+            "boojum_tpu/ntt/pallas_ntt.py:52", ntt_counts["ntt_small"],
+            max(r["err"] for r in k4_res), k4),
+        row("poseidon2_leaf_hashes", p2_src, P2_REPLACES,
+            counts["poseidon2_leaf_hashes"],
+            max(p2["poseidon2_leaf_hashes"][0],
+                prove_errs["poseidon2_leaf_hashes"]),
+            p2["poseidon2_leaf_hashes"][1]),
+        row("poseidon2_node_layer", p2_src, P2_REPLACES,
+            counts["poseidon2_node_layer"],
+            max(p2["poseidon2_node_layer"][0],
+                prove_errs["poseidon2_node_layer"]),
+            p2["poseidon2_node_layer"][1]),
     ]
+    log("summary: " + json.dumps(dict(per_prove=costs, sass={
+        k: {f: v[f] for f in ("total", "integer", "imad", "integer_per_pass")
+            if f in v} for k, v in sass.items()})))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,135 @@
+"""Compare versions of the Poseidon2 and ntt_stage kernels on one card: SASS
+instruction counts and times, in one process.
+
+Each variant is ``LABEL=CSRC_DIR``; its `poseidon2.cu` and `ntt_stage.cu` are
+compiled by `boojum_tpu_torch/utils/cuda_build.build` into
+`boojum_tpu_torch/_build/compare/<label>/`. Per kernel it prints one JSON line
+of SASS counts (`cuda_build.sass_summary`): all instructions, integer-pipe
+ones, IMADs and the loops, and for the Poseidon2 permutation kernel the
+integer instructions per permutation (each round loop's body times its trip
+count). Then it times `poseidon2_permute` at B = 2^16 and 2^20 and
+`ntt_stage` at (256, 2^17) forward with the cross twiddle (twmode 1), the
+variants in turns (A B ... B A), and checks that every variant's outputs
+equal the first's. Needs the card and the CUDA toolkit:
+
+    python3 scripts/torch_kernel_compare.py old=OLD_CSRC new=boojum_tpu_torch/csrc
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+LIBS = ("poseidon2", "ntt_stage")
+
+
+def sass_lines(label, out_dir):
+    from boojum_tpu_torch.utils import cuda_build
+    for name in LIBS:
+        lib = os.path.join(out_dir, "lib%s.so" % name)
+        for kname, instrs in sorted(cuda_build.sass(lib).items()):
+            # the permutation kernel: "poseidon2_kernel" before the fused
+            # entries came, "permute_kernel" since
+            per_perm = "permute_kernel" in kname or "poseidon2_kernel" in kname
+            s = cuda_build.sass_summary(
+                instrs, cuda_build.P2_ROUND_TRIPS if per_perm else ())
+            print(json.dumps(dict(variant=label, library=name, kernel=kname,
+                                  **s)), flush=True)
+
+
+def load(out_dir):
+    import numpy as np
+    from boojum_tpu_torch.hash import poseidon2 as p2mod
+    from boojum_tpu_torch.utils import cuda_build
+    p2, k1 = (cuda_build.open_lib(os.path.join(out_dir, "lib%s.so" % name),
+                                  name) for name in LIBS)
+    # the kernel before the fused entries took the diagonal factors
+    # 2^shift, later ones take the shifts
+    rc = np.asarray(p2mod._RC, np.uint64)
+    diag = np.asarray(p2mod._DIAG_SHIFTS, np.int64) \
+        if hasattr(p2, "poseidon2_leaf_hashes") else \
+        np.asarray([1 << s for s in p2mod._DIAG_SHIFTS], np.uint64)
+    cuda_build.check(p2.poseidon2_set_constants(rc.ctypes.data,
+                                                diag.ctypes.data), "constants")
+    return p2, k1
+
+
+def main(argv):
+    import numpy as np
+    import torch
+    from boojum_tpu_torch.field import goldilocks as gl
+    from boojum_tpu_torch.ntt import mxu_ntt, ntt
+    from boojum_tpu_torch.utils import cuda_build
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_compare: CUDA is not available", file=sys.stderr)
+        return 1
+    variants = dict(arg.split("=", 1) for arg in argv)
+    dirs = {label: os.path.join(cuda_build.BUILD, "compare", label)
+            for label in variants}
+    for label, csrc in variants.items():
+        cuda_build.build(LIBS, csrc, dirs[label])
+        sass_lines(label, dirs[label])
+    # one card: load every variant's libraries into this process
+    loaded = {label: load(dirs[label]) for label in variants}
+
+    rng = np.random.default_rng(11)
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {}
+
+    def permute_call(st):
+        def call(lib):
+            out = torch.empty_like(st)
+            cuda_build.check(lib[0].poseidon2_permute(
+                st.data_ptr(), out.data_ptr(), st.shape[1], stream), "permute")
+            return out
+        return call
+
+    for b in (1 << 16, 1 << 20):
+        st = gl.from_u64(rng.integers(0, gl.ORDER, (12, b), dtype=np.uint64),
+                         "cuda")
+        cases["poseidon2_permute B=%d" % b] = permute_call(st)
+    x = gl.from_u64(rng.integers(0, gl.ORDER, (256, 1 << 17), dtype=np.uint64),
+                    "cuda")
+    tw = gl.from_u64(ntt.fourstep_twiddles_host(8, 8), "cuda")
+    table = mxu_ntt._stage_twiddles_device(8, False, x.device)
+
+    def k1_call(lib):
+        y = torch.empty_like(x)
+        cuda_build.check(lib[1].ntt_stage(
+            x.data_ptr(), y.data_ptr(), table.data_ptr(), tw.data_ptr(), 8,
+            x.shape[1], 0, 1, tw.shape[1], 1, stream), "ntt_stage")
+        return y
+    cases["ntt_stage (256, 2^17) twmode 1"] = k1_call
+
+    labels = list(variants)
+    order = labels + labels[::-1]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    for case, fn in cases.items():
+        ref = fn(loaded[labels[0]])
+        times = {label: [] for label in labels}
+        for label in order:
+            lib = loaded[label]
+            if not torch.equal(fn(lib), ref):
+                raise AssertionError("%s: %s differs from %s"
+                                     % (case, label, labels[0]))
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                fn(lib)
+            end.record()
+            torch.cuda.synchronize()
+            times[label].append(start.elapsed_time(end) / 20)
+        print(json.dumps(dict(case=case, card=card, ms=times)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,8 +1,10 @@
 """GPU-only checks of the port: a whole small proof, and the standalone NTT
-entry point, on the card against the same calls on the CPU (`chip_smoke.py`
-holds each kernel against its plain version at the main paths' shapes). It skips without a GPU. This file imports
-no JAX, so on the GPU machine (which has none) it runs without the suite's
-conftest:
+entry point, on the card against the same calls on the CPU, and each entry
+of the redesigned kernels bit-equal to its plain version on the card
+(`ntt_stage` at every template instance and a ragged width; the three
+Poseidon2 entries at the trees' shapes). It skips without a GPU. This file
+imports no JAX, so on the GPU machine (which has none) it runs without the
+suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
@@ -17,7 +19,8 @@ from boojum_tpu_torch.cs.gates import (ConstantsAllocatorGate, FmaGate,
                                        NopGate, PublicInputGate, ReductionGate)
 from boojum_tpu_torch.cs.setup import create_base_setup
 from boojum_tpu_torch.field import goldilocks as gl
-from boojum_tpu_torch.ntt import pallas_ntt
+from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+from boojum_tpu_torch.ntt import mxu_ntt, ntt, pallas_ntt
 from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                      create_device_setup)
 from boojum_tpu_torch.prover.proof import proof_to_json
@@ -82,3 +85,52 @@ def test_ntt_any_on_gpu_equals_cpu(cuda):
     assert np.array_equal(gl.to_u64(got), gl.to_u64(want))
     with pytest.raises(ValueError):  # beyond the kernel's shared memory
         pallas_ntt.ntt_small(gl.from_u64(np.zeros((1 << 13, 1)), cuda), 13)
+
+
+def _rand(cuda, seed, shape):
+    return gl.from_u64(np.random.default_rng(seed).integers(
+        0, P, shape, dtype=np.uint64), cuda)
+
+
+@pytest.mark.parametrize("r", [128, 256])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("twmode", [0, 1, 2])
+def test_ntt_stage_instances_equal_plain(cuda, r, inverse, twmode):
+    x = _rand(cuda, r + twmode, (r, 1 << 14))
+    tw = None
+    if twmode:
+        tw = gl.from_u64(ntt.fourstep_twiddles_host(r.bit_length() - 1, 8,
+                                                    inverse), cuda)
+    kw = dict(inverse=inverse, tw=tw, tw_pre=twmode == 2)
+    assert torch.equal(mxu_ntt.ntt_cols_matmul(x, **kw),
+                       mxu_ntt.ntt_stage_plain(x, **kw))
+
+
+@pytest.mark.parametrize("m", [1000, 1001])
+def test_ntt_stage_ragged_equals_plain(cuda, m):
+    for r in (128, 256):
+        for inverse in (False, True):
+            x = _rand(cuda, m + r, (r, m))
+            assert torch.equal(mxu_ntt.ntt_cols_matmul(x, inverse=inverse),
+                               mxu_ntt.ntt_stage_plain(x, inverse=inverse))
+
+
+@pytest.mark.parametrize("b", [1, 127, 1 << 16, 1 << 20])
+def test_poseidon2_permute_equals_plain(cuda, b):
+    st = _rand(cuda, b, (12, b))
+    assert torch.equal(pp.permutation_stacked_fast(st),
+                       pp.permutation_plain(st))
+
+
+@pytest.mark.parametrize("k,m", [(64, 1 << 19), (8, 1 << 19), (13, 1 << 12)])
+def test_poseidon2_leaf_hashes_equal_plain(cuda, k, m):
+    cols = _rand(cuda, k, (k, m))
+    assert torch.equal(pp.leaf_hashes(cols), pp.leaf_hashes_plain(cols))
+    view = cols[:, :m // 2]  # a row stride wider than the leaf count
+    assert torch.equal(pp.leaf_hashes(view), pp.leaf_hashes_plain(view))
+
+
+@pytest.mark.parametrize("m", [1 << 19, 32])
+def test_poseidon2_node_layer_equals_plain(cuda, m):
+    cur = _rand(cuda, m, (4, m))
+    assert torch.equal(pp.node_layer(cur), pp.node_layer_plain(cur))

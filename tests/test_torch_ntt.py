@@ -142,3 +142,108 @@ def test_monomials_to_lde_matches_reference():
     assert np.array_equal(device.x_poly_lde_host(64, 4),
                           ref_device.x_poly_lde_host(64, 4))
 
+
+
+def _emulate_ntt_stage(x, log_r, inverse, twmode, tw):
+    """`csrc/ntt_stage.cu` on Python ints, thread by thread: each row class
+    q loads its 16 rows (strided h*G + q forward, local 16q + h inverse),
+    runs its first four (or last) stages on lazy values, the exchange hands
+    each q the other 16 rows, then the remaining stages, the scale and
+    twiddle, and one canonicalization at the store."""
+    from tests.test_torch_poseidon2_fused import (add_lazy, canonicalize,
+                                                   mul_lazy, sub_lazy)
+    r, g = 1 << log_r, 1 << (log_r - 4)
+    tws = [int(v) for v in mxu_ntt._stage_twiddles_host(log_r, inverse)]
+    scale = gl.s_inv(r)
+    rows_strided = lambda q: [h * g + q for h in range(16)]  # noqa: E731
+    rows_local = lambda q: [16 * q + h for h in range(16)]  # noqa: E731
+
+    def bfly(a, i, j, w):
+        if inverse:
+            t = a[j] if w is None else mul_lazy(a[j], w)
+            a[i], a[j] = add_lazy(a[i], t), sub_lazy(a[i], t)
+        else:
+            d = sub_lazy(a[i], a[j])
+            a[i] = add_lazy(a[i], a[j])
+            a[j] = d if w is None else mul_lazy(d, w)
+
+    def strided(a, q):
+        for s in range(4):
+            k = 3 - s if inverse else s
+            span = 8 >> k
+            for h in range(16):
+                if not h & span:
+                    bfly(a, h, h + span, tws[((h & (span - 1)) * g + q) << k])
+
+    def local(a):
+        for s in range(log_r - 4):
+            k = log_r - 1 - s if inverse else 4 + s
+            half = r >> (k + 1)
+            for i in range(16):
+                if not i & half:
+                    j = i & (half - 1)
+                    bfly(a, i, i + half, tws[j << k] if j else None)
+
+    m = len(x[0])
+    out = [[None] * m for _ in range(r)]
+    for col in range(m):
+        wcol = col % (len(tw[0]) if twmode else 1)
+        ex = [None] * r
+        for q in range(g):
+            rows = rows_local(q) if inverse else rows_strided(q)
+            a = [x[row][col] for row in rows]
+            if twmode == 2:
+                a = [mul_lazy(v, tw[row][wcol]) for v, row in zip(a, rows)]
+            local(a) if inverse else strided(a, q)
+            for v, row in zip(a, rows):
+                ex[row] = v
+        for q in range(g):
+            rows = rows_strided(q) if inverse else rows_local(q)
+            a = [ex[row] for row in rows]
+            strided(a, q) if inverse else local(a)
+            for v, row in zip(a, rows):
+                if inverse:
+                    v = mul_lazy(v, scale)
+                if twmode == 1:
+                    v = mul_lazy(v, tw[row][wcol])
+                out[row][col] = canonicalize(v)
+    return out
+
+
+@pytest.mark.parametrize("log_r", [7, 8])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("twmode", [0, 1, 2])
+def test_kernel_order_matches_plain_stage(log_r, inverse, twmode):
+    """The Hopper stage kernel's register/exchange schedule, emulated at
+    every template instance, equals the plain stage (2 columns, one of them
+    all p - 1)."""
+    r = 1 << log_r
+    x = _rand(90 + log_r + twmode, (r, 2))
+    x[:, 1] = P - 1
+    tw = _tw_table(log_r, 2, inverse) if twmode else None
+    want = gl.to_u64(mxu_ntt.ntt_cols_matmul(
+        gl.from_u64(x), inverse=inverse,
+        tw=gl.from_u64(tw) if twmode else None, tw_pre=twmode == 2))
+    got = _emulate_ntt_stage([[int(v) for v in row] for row in x], log_r,
+                             inverse, twmode,
+                             None if tw is None else [[int(v) for v in row]
+                                                      for row in tw])
+    assert got == [[int(v) for v in row] for row in want]
+
+
+def test_fourstep_reuses_device_twiddle_table():
+    """The four-step's cross-twiddle tables are made and uploaded once per
+    (shape, direction, device); the output still equals the reference."""
+    ntt.fourstep_twiddles_device.cache_clear()
+    x = _rand(61, (1 << 14, 1))
+    outs = [ntt.ntt_fourstep_cols(gl.from_u64(x)) for _ in range(2)]
+    info = ntt.fourstep_twiddles_device.cache_info()
+    assert (info.misses, info.hits) == (1, 1)
+    assert ntt.fourstep_twiddles_device(7, 7, False, torch.device("cpu")) \
+        is ntt.fourstep_twiddles_device(7, 7, False, torch.device("cpu"))
+    want = ref_gl.to_u64(ref_ntt.ntt_fourstep_cols(ref_gl.from_u64(x)))
+    for out in outs:
+        assert np.array_equal(gl.to_u64(out), want)
+    back = ntt.intt_fourstep_cols(outs[0])
+    assert np.array_equal(gl.to_u64(back), x)
+    assert ntt.fourstep_twiddles_device.cache_info().misses == 2  # inverse

@@ -1,0 +1,265 @@
+"""The fused Poseidon2 tree entries of the port (the plain versions of the
+`poseidon2_leaf_hashes` and `poseidon2_node_layer` kernels) against the JAX
+package's `_leaf_hashes_traced` / `_node_layer_traced`, and a Python-int
+emulation of the Hopper kernels' lazy Goldilocks arithmetic
+(`csrc/goldilocks.cuh`) in the exact operation order of `csrc/poseidon2.cu`
+against the canonical permutation. The emulation checks every lazy result
+for range and congruence, so a range error shows here before the kernel
+runs on a card. Exact equality throughout."""
+
+import numpy as np
+import pytest
+import torch
+
+from boojum_tpu.field import goldilocks as ref_gl
+from boojum_tpu.prover import device_merkle as ref_dm
+from boojum_tpu_torch.field import goldilocks as gl
+from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+from boojum_tpu_torch.hash import poseidon2 as p2
+
+P = gl.ORDER
+EPS = (1 << 32) - 1
+M64 = (1 << 64) - 1
+
+
+M128 = (1 << 128) - 1
+
+
+# ---------------------------------------------------------------------------
+# goldilocks.cuh, lazy half, on Python ints (every result checked)
+# ---------------------------------------------------------------------------
+
+
+def _lazy(out, exact):
+    assert 0 <= out <= M64, "lazy result out of u64 range"
+    assert out % P == exact % P, "lazy result not congruent"
+    return out
+
+
+def times_eps(c):
+    """(c << 32) - c on u64: c * EPS for c in {0, 1}, -EPS for 2^64 - 1."""
+    return ((c << 32) - c) & M64
+
+
+def reduce96(v):
+    assert 0 <= v < 1 << 96
+    hi = v >> 64
+    t = (v & M64) + times_eps(hi)
+    assert t >> 64 in (0, 1)
+    out = (t & M64) + times_eps(t >> 64)
+    assert out <= M64, "second carry in reduce96"
+    return _lazy(out, v)
+
+
+def reduce128_lazy(v):
+    lo, hi = v & M64, v >> 64
+    hi_hi, hi_lo = hi >> 32, hi & EPS
+    w = (lo + (hi_lo << 32) - (hi_lo + hi_hi)) & M128
+    k = w >> 64
+    assert k in (0, 1, M64)
+    exact = (w & M64) + {0: 0, 1: EPS, M64: -EPS}[k]
+    assert 0 <= exact <= M64, "wrap in reduce128_lazy"
+    return _lazy(exact, v)
+
+
+def add_lazy(a, b):
+    return _lazy(reduce96(a + b), a + b)
+
+
+def add_canon_lazy(a, c):
+    assert c < P
+    s = a + c
+    out = (s & M64) + times_eps(s >> 64)
+    assert out <= M64
+    return _lazy(out, s)
+
+
+def sub_lazy(a, b):
+    d = (a - b) & M128
+    e = ((d & M64) - times_eps((d >> 64) & 1)) & M128
+    out = (e & M64) - times_eps((e >> 64) & 1)
+    assert out >= 0, "third borrow in sub_lazy"
+    return _lazy(out, a - b)
+
+
+def mul_lazy(a, b):
+    return reduce128_lazy(a * b)
+
+
+def square_lazy(a):
+    a0, a1 = a & EPS, a >> 32
+    sq = ((a1 * a1) << 64) + a0 * a0 + ((a0 * a1) << 33)
+    assert sq == a * a
+    return reduce128_lazy(sq)
+
+
+def canonicalize(a):
+    out = a - P if a >= P else a
+    assert 0 <= out < P
+    return out
+
+
+EDGES = [0, 1, 2, EPS - 1, EPS, EPS + 1, 1 << 32, (1 << 63) - 1, 1 << 63,
+         P - 2, P - 1, P, P + 1, M64 - EPS - 1, M64 - EPS, M64 - EPS + 1,
+         M64 - 1, M64]
+
+
+# ---------------------------------------------------------------------------
+# poseidon2.cu in its operation order
+# ---------------------------------------------------------------------------
+
+
+def _sbox7(x):
+    x2 = square_lazy(x)
+    x3 = mul_lazy(x, x2)
+    x4 = square_lazy(x2)
+    return mul_lazy(x3, x4)
+
+
+def _external_mds(el):
+    """Delayed reduction: exact sums (< 2^71), one reduce96 per output."""
+    b = []
+    for k in range(3):
+        x0, x1, x2, x3 = el[4 * k:4 * k + 4]
+        t0, t1 = x0 + x1, x2 + x3
+        t2, t3 = 2 * x1 + t1, 2 * x3 + t0
+        t4, t5 = 4 * t1 + t3, 4 * t0 + t2
+        b.append((t3 + t5, t5, t2 + t4, t4))
+    out = [0] * 12
+    for j in range(4):
+        total = b[0][j] + b[1][j] + b[2][j]
+        for k in range(3):
+            out[4 * k + j] = reduce96(b[k][j] + total)
+    return out
+
+
+def emulate_permute(el):
+    """The kernel's `permute`: lazy in, lazy out."""
+    rc = p2._RC
+    el = _external_mds(list(el))
+    r = 0
+    for phase, rounds in (("full", 4), ("partial", 22), ("full", 4)):
+        for _ in range(rounds):
+            if phase == "full":
+                el = [_sbox7(add_canon_lazy(e, rc[r * 12 + i]))
+                      for i, e in enumerate(el)]
+                el = _external_mds(el)
+            else:
+                el[0] = _sbox7(add_canon_lazy(el[0], rc[r * 12]))
+                total = sum(el)  # < 12 * 2^64, kept exact
+                el = [reduce96((e << p2._DIAG_SHIFTS[i]) + total)
+                      for i, e in enumerate(el)]
+            r += 1
+    return el
+
+
+def emulate_leaf(col):
+    """The kernel's leaf entry for one column of k values."""
+    el = [0] * 12
+    for r0 in range(0, len(col), 8):
+        block = list(col[r0:r0 + 8])
+        el[:8] = block + [0] * (8 - len(block))
+        el = emulate_permute(el)
+    return [canonicalize(e) for e in el[:4]]
+
+
+def _states(seed, b):
+    return np.random.default_rng(seed).integers(0, P, (12, b), dtype=np.uint64)
+
+
+# ---------------------------------------------------------------------------
+# tests
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("entry,k", [("leaf", 8), ("leaf", 64), ("leaf", 13),
+                                     ("node", 4)])
+def test_plain_entries_match_reference(entry, k):
+    """leaf_hashes_plain / node_layer_plain against the JAX tree functions
+    at m = 2^10 (k = 13 needs the padding to the rate)."""
+    m = 1 << 10
+    cols = np.random.default_rng(k).integers(0, P, (k, m), dtype=np.uint64)
+    before = (pp.LAUNCHES, pp.LEAF_LAUNCHES, pp.NODE_LAUNCHES,
+              pp.PLAIN_CUDA_CALLS)
+    if entry == "leaf":
+        got = pp.leaf_hashes_plain(gl.from_u64(cols))
+        ref_cols = ref_dm._pad_cols_to_rate(ref_gl.from_u64(cols))
+        want = ref_dm._leaf_hashes_traced(ref_cols)
+        assert torch.equal(pp.leaf_hashes(gl.from_u64(cols)), got)
+    else:
+        got = pp.node_layer_plain(gl.from_u64(cols))
+        want = ref_dm._node_layer_traced(ref_gl.from_u64(cols))
+        assert torch.equal(pp.node_layer(gl.from_u64(cols)), got)
+        assert got.shape == (4, m // 2)
+    assert np.array_equal(gl.to_u64(got), ref_gl.to_u64(want))
+    # on CPU tensors the wrappers run the plain versions and count nothing
+    assert (pp.LAUNCHES, pp.LEAF_LAUNCHES, pp.NODE_LAUNCHES,
+            pp.PLAIN_CUDA_CALLS) == before
+
+
+def test_lazy_primitives_on_edge_values():
+    """Every pair of edge values (lazy inputs up to 2^64 - 1) through each
+    lazy primitive: in range and congruent (checked inside each)."""
+    for a in EDGES:
+        square_lazy(a)
+        canonicalize(a)
+        for s in (1, 4, 14, 31):  # the internal matrix's a * 2^s + sum
+            reduce96((a << s) + 12 * M64)
+        for b in EDGES:
+            add_lazy(a, b)
+            sub_lazy(a, b)
+            mul_lazy(a, b)
+            if b < P:
+                add_canon_lazy(a, b)
+            for c in (0, 1, EPS):  # reduce96 takes v < 2^96
+                reduce96((c << 64) + a)
+
+
+@pytest.mark.parametrize("kind", ["random", "p_minus_1", "u64_max", "zeros",
+                                  "lazy_random"])
+def test_kernel_operation_order_matches_permutation(kind):
+    """The kernel's exact operation order on lazy values, canonicalized once
+    at the end, equals the canonical permutation of the inputs mod p."""
+    rng = np.random.default_rng(3)
+    states = {
+        "random": [[int(v) for v in col] for col in _states(4, 3).T],
+        "p_minus_1": [[P - 1] * 12],
+        "u64_max": [[M64] * 12],
+        "zeros": [[0] * 12],
+        "lazy_random": [[int(v) for v in rng.integers(0, M64, 12,
+                                                       dtype=np.uint64,
+                                                       endpoint=True)]
+                        for _ in range(3)],
+    }[kind]
+    for st in states:
+        got = [canonicalize(e) for e in emulate_permute(st)]
+        assert got == p2.s_permutation([v % P for v in st])
+
+
+def test_kernel_leaf_and_node_order_match_plain():
+    """The leaf entry keeps lazy state between permutations and pads rows
+    past k with zeros in registers; the node entry zeroes the capacity. Both
+    emulations equal the plain versions (k = 13: one full, one partial
+    block)."""
+    cols = np.random.default_rng(9).integers(0, P, (13, 4), dtype=np.uint64)
+    cols[:, 1] = P - 1
+    want = gl.to_u64(pp.leaf_hashes_plain(gl.from_u64(cols)))
+    for j in range(cols.shape[1]):
+        assert emulate_leaf([int(v) for v in cols[:, j]]) == \
+            [int(v) for v in want[:, j]]
+    cur = np.random.default_rng(10).integers(0, P, (4, 4), dtype=np.uint64)
+    want = gl.to_u64(pp.node_layer_plain(gl.from_u64(cur)))
+    for j in range(2):
+        st = [int(v) for v in cur[:, 2 * j]] + \
+             [int(v) for v in cur[:, 2 * j + 1]] + [0] * 4
+        assert [canonicalize(e) for e in emulate_permute(st)[:4]] == \
+            [int(v) for v in want[:, j]]
+
+
+def test_tree_entries_check_inputs():
+    with pytest.raises(TypeError):
+        pp.node_layer(gl.from_u64(_states(5, 4)[:5]))
+    with pytest.raises(ValueError):
+        pp.node_layer(gl.from_u64(_states(5, 3)[:4]))
+    with pytest.raises(TypeError):
+        pp.leaf_hashes(torch.zeros((8, 4), dtype=torch.int32))
