@@ -3,7 +3,8 @@
 //
 // Two families:
 // - canonical: add, sub, mul take and return values < p;
-// - lazy: add_lazy, add_canon_lazy, sub_lazy, mul_lazy, square_lazy and
+// - lazy: add_lazy, add_canon_lazy, sub_lazy, mul_lazy, square_lazy,
+//   mul_pow2 / mul_pow2_96 (times a compile-time power of two) and
 //   reduce96 (which also takes a 96-bit sum, such as a * 2^s + b) take ANY
 //   uint64_t and return some uint64_t congruent to the exact result mod p
 //   (the ranges of boojum_tpu/field/goldilocks.py add_lazy .. canonicalize).
@@ -58,7 +59,9 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
 // ---------------------------------------------------------------------------
 // Lazy (any uint64_t) representatives. The carries go through 128-bit
 // integers, so the compiler keeps them in the carry flags of its 32-bit adds
-// instead of comparing 64-bit values.
+// instead of comparing 64-bit values; add_lazy and sub_lazy, the most
+// frequent, take their carries straight from PTX's add.cc / sub.cc, which
+// compiles to about a quarter fewer instructions than the 128-bit form.
 // ---------------------------------------------------------------------------
 
 using u128 = unsigned __int128;
@@ -87,8 +90,17 @@ __device__ __forceinline__ uint64_t reduce128_lazy(u128 v) {
   return (uint64_t)w + times_eps((uint64_t)(w >> 64));
 }
 
+// a + b: on a carry add EPS (2^64 = EPS mod p), and once more if that
+// carries. Each asm block pairs add.cc with addc (or sub.cc with subc), so
+// the carry flag never crosses a block.
 __device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
-  return reduce96((u128)a + b);
+  uint64_t s, t;
+  uint32_t c, c2;
+  asm("add.cc.u64 %0, %2, %3;\n\taddc.u32 %1, 0, 0;"
+      : "=l"(s), "=r"(c) : "l"(a), "l"(b));
+  asm("add.cc.u64 %0, %2, %3;\n\taddc.u32 %1, 0, 0;"
+      : "=l"(t), "=r"(c2) : "l"(s), "l"((uint64_t)(0u - c)));
+  return t + (0u - c2);
 }
 
 // a + c for a canonical constant c < p: after a carry the low word is below
@@ -98,12 +110,16 @@ __device__ __forceinline__ uint64_t add_canon_lazy(uint64_t a, uint64_t c) {
   return (uint64_t)s + times_eps((uint64_t)(s >> 64));
 }
 
-// a - b: a borrow leaves d = a - b + 2^64, so subtract EPS; when d < EPS
-// that borrows again, and a second EPS off gives d + 2^64 - 2^33 + 2.
+// a - b: on a borrow subtract EPS, and once more if that borrows (subc of
+// 0 - 0 leaves 0xFFFFFFFF = EPS exactly on a borrow).
 __device__ __forceinline__ uint64_t sub_lazy(uint64_t a, uint64_t b) {
-  const u128 d = (u128)a - b;
-  const u128 e = (u128)(uint64_t)d - times_eps((uint64_t)(d >> 64) & 1);
-  return (uint64_t)e - times_eps((uint64_t)(e >> 64) & 1);
+  uint64_t d, e;
+  uint32_t m, m2;
+  asm("sub.cc.u64 %0, %2, %3;\n\tsubc.u32 %1, 0, 0;"
+      : "=l"(d), "=r"(m) : "l"(a), "l"(b));
+  asm("sub.cc.u64 %0, %2, %3;\n\tsubc.u32 %1, 0, 0;"
+      : "=l"(e), "=r"(m2) : "l"(d), "l"((uint64_t)m));
+  return e - m2;
 }
 
 __device__ __forceinline__ uint64_t mul_lazy(uint64_t a, uint64_t b) {
@@ -116,6 +132,28 @@ __device__ __forceinline__ uint64_t square_lazy(uint64_t a) {
   const uint64_t a0 = (uint32_t)a, a1 = a >> 32;
   const u128 sq = ((u128)(a1 * a1) << 64) + a0 * a0 + ((u128)(a0 * a1) << 33);
   return reduce128_lazy(sq);
+}
+
+// x * 2^e for any uint64_t x and a compile-time 0 <= e < 96 (after
+// inlining every branch folds away):
+//   e <= 32: x * 2^e < 2^96, one reduce96;
+//   e < 64:  x * 2^e < 2^128, one reduce128_lazy;
+//   e < 96:  with x = xh * 2^32 + xl, xl * 2^e < 2^128 and
+//            xh * 2^(e + 32) = -xh * 2^(e - 64) (2^96 = -1), where
+//            xh * 2^(e - 64) < 2^64: one reduce128_lazy and one sub_lazy.
+__device__ __forceinline__ uint64_t mul_pow2_96(uint64_t x, int e) {
+  if (e == 0) return x;
+  if (e <= 32) return reduce96((u128)x << e);
+  if (e < 64) return reduce128_lazy((u128)x << e);
+  const uint64_t xl = (uint32_t)x, xh = x >> 32;
+  return sub_lazy(reduce128_lazy((u128)xl << e), xh << (e - 64));
+}
+
+// x * 2^e mod p, lazy, for a compile-time 0 <= e < 192 (2^192 = 1): the
+// factors 2^e with e >= 96 are -2^(e - 96). The butterflies fold that sign
+// into their add and subtract instead of negating.
+__device__ __forceinline__ uint64_t mul_pow2(uint64_t x, int e) {
+  return e < 96 ? mul_pow2_96(x, e) : sub_lazy(0, mul_pow2_96(x, e - 96));
 }
 
 }  // namespace gl

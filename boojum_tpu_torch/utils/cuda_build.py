@@ -42,8 +42,9 @@ _SIGNATURES = {
         "poseidon2_node_layer": [_P, _P, _LL, _P],  # cur, out, m, stream
     },
     "ntt_small": {
-        # x, y, stage table, log_n, batch, inverse, 1/n scale, stream
-        "ntt_small": [_P, _P, _P, _I, _LL, _I, _ULL, _P],
+        # x, y, stage table, cross twiddle (None: no epilogue), log_n,
+        # batch, inverse, cross-twiddle column shift, stream
+        "ntt_small": [_P, _P, _P, _P, _I, _LL, _I, _I, _P],
     },
 }
 

@@ -5,8 +5,11 @@ kernel's SASS instruction counts (`cuobjdump -sass`), and holds every kernel
 entry bit-exactly against its plain PyTorch version on the card: `ntt_stage`
 at every template instance (R 128 / 256 x forward / inverse x twiddle mode
 0 / 1 / 2) and at a ragged width, `poseidon2_permute`,
-`poseidon2_leaf_hashes` and `poseidon2_node_layer` at the trees' shapes;
-every shape it times is held against the plain version first. Then it drives
+`poseidon2_leaf_hashes` and `poseidon2_node_layer` at the trees' shapes,
+`ntt_small` at every template instance (log n 0 .. 12 x forward / forward
+with the cross twiddle / inverse) at two ragged batches and at the NTT
+path's two shapes with its real twiddle tables; every shape it times is held
+against the plain version first. Then it drives
 three paths, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -18,11 +21,12 @@ just after:
   kernel launches of one prove by shape, holds each shape bit-exactly
   against its plain version, times it and prints, per kernel, the sum over
   a prove of launches x time and of launches x (time - bound);
-- the standalone NTT: after holding the all-stage small NTT kernel against
-  its plain version, runs `pallas_ntt.ntt_any` at (2^24, 8), whose output
+- the standalone NTT: runs `pallas_ntt.ntt_any` at (2^24, 8), whose output
   must equal the digest in `boojum_tpu_torch/data/ntt_2e24_digest.json`
   (made by `scripts/torch_reference_ntt_digest.py`) and the radix-256 route
-  `ntt.ntt_fourstep_cols`;
+  `ntt.ntt_fourstep_cols`; it must launch `ntt_small` 4 times, with no
+  plain version and no torch cross-twiddle multiply on the card (both
+  cross twiddles ride in the kernel's store);
 - the batch permutation: `pallas_poseidon2.permutation_stacked_fast` on 2^20
   random states, against its plain version. No path of the port calls it
   since the trees hash through the leaf and node entries; this phase keeps
@@ -129,30 +133,46 @@ def require_equal(got, want, what):
 # ---------------------------------------------------------------------------
 
 
+def k4_elements(log_n):
+    """Elements one thread of a `ntt_small` instance holds: 2^A rows of C
+    columns, A = min(log n, 3), C = 2 (csrc/ntt_small.cu, Shape<L>)."""
+    return 2 << min(log_n, 3)
+
+
 def sass_report():
     """Instruction counts of the built kernels. The Poseidon2 entries roll
     their round loops (each round body unrolled), so their integer
     instructions per permutation count each round loop's body times its
     trips; the leaf entry's count is for one absorbed rate block. The
-    ntt_stage instances are straight-line code over 32 elements a thread,
-    so theirs is per element."""
+    ntt_stage and ntt_small instances are straight-line code over the
+    elements a thread holds (32 for ntt_stage; 2^A rows of C columns for
+    ntt_small), so theirs is per element."""
+    import re
     from boojum_tpu_torch.utils import cuda_build
 
     report = {}
-    for lib in ("poseidon2", "ntt_stage"):
+    for lib in ("poseidon2", "ntt_stage", "ntt_small"):
         trips = cuda_build.P2_ROUND_TRIPS if lib == "poseidon2" else ()
         for kname, instrs in sorted(
                 cuda_build.sass(cuda_build._lib_path(lib)).items()):
             s = cuda_build.sass_summary(instrs, trips)
-            short = kname
+            short, per_elem = kname, 32
             for tag in ("permute_kernel", "leaf_kernel", "node_kernel",
                         "ntt_stage_kernel"):
                 if tag in kname:
                     short = tag + kname.split(tag, 1)[1][:14]
+            k4 = re.search(r"ntt_small_kernelILi(\d+)ELb([01])ELb([01])E",
+                           kname)
+            if k4:
+                log_n, inv, epi = (int(g) for g in k4.groups())
+                short = "ntt_small_kernel<%d,%s%s>" % (
+                    log_n, "inv" if inv else "fwd", ",tw" if epi else "")
+                per_elem = k4_elements(log_n)
+            s["integer_per_element"] = s["integer"] / per_elem
             report[short] = s
             per = " (%d integer per permutation)" % s["integer_per_pass"] \
                 if trips else " (%.1f integer per element)" % (
-                    s["integer"] / 32)
+                    s["integer_per_element"])
             log("sass %s: %d instructions, %d integer-pipe, %d IMAD, "
                 "%d loops%s" % (short, s["total"], s["integer"], s["imad"],
                                 len(s["loops"]), per))
@@ -303,34 +323,72 @@ def time_p2(shape, x, plain=False):
     return res
 
 
-def check_ntt_small(rng, results):
-    """K4 against its plain version, forward and inverse: small and large n,
-    batches that are not a multiple of the kernel's tile, and the two shapes
-    of the NTT path, (512, 2^18) and (8, 2^24)."""
+def k4_tables():
+    """The two cross-twiddle tables of `ntt_any` at (2^24, 8), as the path
+    hands them to K4: the inner (512, 8) table at shift 15 and the outer
+    (4096, 4096) table re-laid to (8, 2^21) at shift 3."""
+    import torch
+    from boojum_tpu_torch.ntt import ntt
+    from boojum_tpu_torch.ntt import pallas_ntt as pn
+    dev = torch.device("cuda")
+    inner = ntt.fourstep_twiddles_device(9, 3, False, dev)
+    outer = pn.relaid_twiddles(ntt.fourstep_twiddles_device(12, 12, False,
+                                                            dev), 9)
+    return {9: (inner, 15), 3: (outer, 3)}
+
+
+def check_ntt_small(rng):
+    """K4 against its plain version at every template instance (log n 0 ..
+    12; forward, forward with the cross twiddle, inverse), each at an odd
+    batch (8-byte path) and an even one (16-byte path); then timed at the
+    two shapes of the NTT path, (512, 2^18) and (8, 2^24), forward and
+    inverse, and forward with the path's real twiddle tables. Returns the
+    largest error and the timings by (log_n, B, mode)."""
     from boojum_tpu_torch.ntt import pallas_ntt as pn
 
-    cases = [(0, 7), (1, 1 << 20), (3, 3001), (9, 1000), (12, 1030),
-             (9, 1 << 18), (3, 1 << 24)]
-    for (log_n, b) in cases:
+    errs = []
+    for log_n in range(pn.MAX_KERNEL_LOG + 1):
+        n = 1 << log_n
+        for b in (1001, 2050):
+            x = rand_field(rng, (n, b))
+            shift = 1 if b % 2 == 0 else 0
+            tw = rand_field(rng, (n, b >> shift))
+            for mode in ("forward", "twiddle", "inverse"):
+                kw = dict(tw=tw, tw_shift=shift) if mode == "twiddle" else {}
+                inv = mode == "inverse"
+                errs.append(require_equal(
+                    pn.ntt_small(x, log_n, inv, **kw),
+                    pn.ntt_small_plain(x, log_n, inv, **kw),
+                    "ntt_small n=%d B=%d %s" % (n, b, mode)))
+    log("ntt_small: bit-equal at every instance (log n 0..12 x forward / "
+        "twiddle / inverse) at B = 1001 and 2050")
+
+    tables, timings = k4_tables(), {}
+    for (log_n, b) in ((9, 1 << 18), (3, 1 << 24)):
         n = 1 << log_n
         x = rand_field(rng, (n, b))
-        for inverse in (False, True):
-            got = pn.ntt_small(x, log_n, inverse)
-            want = pn.ntt_small_plain(x, log_n, inverse)
-            err = require_equal(got, want, "ntt_small n=%d B=%d inverse=%s"
-                                % (n, b, inverse))
-            ms = cuda_ms(lambda: pn.ntt_small(x, log_n, inverse), 20)
-            plain_ms = cuda_ms(lambda: pn.ntt_small_plain(x, log_n, inverse),
-                               2)
-            muls = (n // 2) * log_n * b + n * b * int(inverse)
-            b_ms, b_by = bound(2 * n * b * 8 + n * 8, muls)
-            log("ntt_small n=%d B=%d inverse=%d: bit-equal, %.4f ms kernel, "
-                "%.3f ms plain, bound %.4f ms (%s), %.1f%% of bound"
-                % (n, b, inverse, ms, plain_ms, b_ms, b_by, 100 * b_ms / ms))
-            results.append(dict(log_n=log_n, b=b, inverse=inverse, ms=ms,
-                                plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by, err=err))
-        del x, got, want
+        tw, shift = tables[log_n]
+        for mode in ("forward", "twiddle", "inverse"):
+            kw = dict(tw=tw, tw_shift=shift) if mode == "twiddle" else {}
+            inv = mode == "inverse"
+            err = require_equal(pn.ntt_small(x, log_n, inv, **kw),
+                                pn.ntt_small_plain(x, log_n, inv, **kw),
+                                "ntt_small n=%d B=%d %s" % (n, b, mode))
+            errs.append(err)
+            ms = cuda_ms(lambda: pn.ntt_small(x, log_n, inv, **kw), 20)
+            plain_ms = cuda_ms(lambda: pn.ntt_small_plain(x, log_n, inv,
+                                                          **kw), 2)
+            tw_bytes = tw.numel() * 8 if mode == "twiddle" else 0
+            muls = (n // 2) * log_n * b + n * b * int(mode != "forward")
+            b_ms, b_by = bound(2 * n * b * 8 + n * 8 + tw_bytes, muls)
+            log("ntt_small n=%d B=%d %s: bit-equal, %.4f ms kernel, %.3f ms "
+                "plain, bound %.4f ms (%s), %.1f%% of bound"
+                % (n, b, mode, ms, plain_ms, b_ms, b_by, 100 * b_ms / ms))
+            timings[(log_n, b, mode)] = dict(ms=ms, plain_ms=plain_ms,
+                                             bound_ms=b_ms, bound_by=b_by,
+                                             err=err)
+        del x
+    return max(errs), timings
 
 
 # ---------------------------------------------------------------------------
@@ -348,10 +406,12 @@ def reset_counts():
         if hasattr(mod, "SHAPES"):
             mod.SHAPES.clear()
     pp.LEAF_LAUNCHES = pp.NODE_LAUNCHES = 0
+    pn.TORCH_TWIDDLE_MULS = 0
 
 
 def read_counts():
-    """Launches of every kernel entry and plain calls on CUDA tensors."""
+    """Launches of every kernel entry, plain calls on CUDA tensors, and torch
+    cross-twiddle multiplies on CUDA tensors."""
     from boojum_tpu_torch.hash import pallas_poseidon2 as pp
     from boojum_tpu_torch.ntt import mxu_ntt
     from boojum_tpu_torch.ntt import pallas_ntt as pn
@@ -360,14 +420,15 @@ def read_counts():
                 poseidon2_node_layer=pp.NODE_LAUNCHES,
                 ntt_small=pn.LAUNCHES,
                 plain_on_cuda=mxu_ntt.PLAIN_CUDA_CALLS + pp.PLAIN_CUDA_CALLS
-                + pn.PLAIN_CUDA_CALLS)
+                + pn.PLAIN_CUDA_CALLS,
+                torch_twiddle_muls=pn.TORCH_TWIDDLE_MULS)
 
 
-def ntt_path(k4_ms):
+def ntt_path(k4):
     """The standalone NTT entry point at 2^24 x 8: `pallas_ntt.ntt_any` (the
     K4 route) against the committed JAX digest and against the K1 route
-    (`ntt.ntt_fourstep_cols`), with both routes timed. ``k4_ms`` maps a K4
-    shape (log_n, B) to its forward kernel time."""
+    (`ntt.ntt_fourstep_cols`), with both routes timed. ``k4`` maps a K4
+    shape (log_n, B, mode) to its timing from `check_ntt_small`."""
     import numpy as np
     import torch
     from boojum_tpu_torch.field import goldilocks as gl
@@ -391,8 +452,9 @@ def ntt_path(k4_ms):
         raise AssertionError("ntt_any at 2^24 should launch ntt_small 4 "
                              "times, got %d at 2^%d"
                              % (counts["ntt_small"], log_n))
-    if counts["plain_on_cuda"]:
-        raise AssertionError("a plain version ran on a CUDA tensor")
+    if counts["plain_on_cuda"] or counts["torch_twiddle_muls"]:
+        raise AssertionError("a plain version or a torch twiddle multiply "
+                             "ran on a CUDA tensor")
 
     host = gl.to_u64(out)
     digest = hashlib.sha256(host.astype("<u8").tobytes()).hexdigest()
@@ -413,25 +475,23 @@ def ntt_path(k4_ms):
     ms_k4 = cuda_ms(lambda: pn.ntt_any(x, log_n), 3)
     ms_k1 = cuda_ms(lambda: ntt.ntt_fourstep_cols(x), 3)
     # One K4-route call at 2^24 splits 2^12 x 2^12, and each 2^12 pass
-    # 2^9 x 2^3: 4 kernel launches, 3 cross-twiddle multiplies (2 inner on
-    # (512, 8, 2^15), 1 outer on (4096, 4096, 8)) and 6 transpose copies
-    # (4 inner, 2 outer), each pass over all 2^27 elements. Time each part
-    # alone on the same data.
+    # 2^9 x 2^3: 4 kernel launches -- (512, 2^18) with the inner twiddle
+    # twice, (8, 2^24) with the outer twiddle once and without once -- and
+    # 6 transpose copies (4 inner, 2 outer), each pass over all 2^27
+    # elements. Kernels from check_ntt_small; transposes timed alone here.
     inner, outer = x.view(512, 8, -1), x.view(4096, 4096, b)
-    tw_in = ntt.fourstep_twiddles_device(9, 3, False, x.device)[:, :, None]
-    tw_out = ntt.fourstep_twiddles_device(12, 12, False, x.device)[:, :, None]
     parts = dict(
-        kernels=2 * k4_ms[(9, n * b // 512)] + 2 * k4_ms[(3, n * b // 8)],
-        mul_inner=2 * cuda_ms(lambda: gl.mul(inner, tw_in), 3),
-        mul_outer=cuda_ms(lambda: gl.mul(outer, tw_out), 3),
+        kernels=2 * k4[(9, n * b // 512, "twiddle")]["ms"]
+        + k4[(3, n * b // 8, "twiddle")]["ms"]
+        + k4[(3, n * b // 8, "forward")]["ms"],
         transpose_inner=4 * cuda_ms(
             lambda: inner.transpose(0, 1).reshape(8, -1), 10),
         transpose_outer=2 * cuda_ms(
             lambda: outer.transpose(0, 1).reshape(4096, -1), 10))
-    b_ms, _ = bound(13 * 2 * n * b * 8, 0)
+    b_ms, _ = bound((10 * 2 * n * b + 2 * 512 * 8 + 2 ** 24) * 8, 0)
     log("ntt path ntt_any (K4 route): %.3f ms per call, %.3f ms per 2^%d "
-        "transform, %.2f NTT/s; byte bound of its 4 kernel passes + 3 twiddle "
-        "multiplies + 6 transposes %.3f ms"
+        "transform, %.2f NTT/s; byte bound of its 4 kernel passes (with "
+        "their twiddle tables) + 6 transposes %.3f ms"
         % (ms_k4, ms_k4 / b, log_n, b * 1e3 / ms_k4, b_ms))
     log("ntt path split per call (parts timed alone, ms): " + json.dumps(
         {k: round(v, 4) for k, v in parts.items()}))
@@ -606,18 +666,15 @@ def main():
         % (k1["ms"], k1["plain_ms"], k1["bound_ms"], k1["bound_by"],
            100 * k1["bound_ms"] / k1["ms"]))
     p2 = check_poseidon2(rng)
+    k4_err, k4 = check_ntt_small(rng)
     if kernels_only:
         log("chip_smoke: --kernels-only, stopping after the kernel checks")
         return 0
 
     counts, k1_shapes, p2_shapes = flagship()
     costs, prove_errs = per_prove_costs(rng, k1_shapes, p2_shapes)
-    k4_res = []
-    check_ntt_small(rng, k4_res)
-    ntt_counts = ntt_path({(r["log_n"], r["b"]): r["ms"] for r in k4_res
-                           if not r["inverse"]})
+    ntt_counts = ntt_path(k4)
     perm_counts = permute_path(rng)
-    k4 = next(r for r in k4_res if (r["log_n"], r["b"]) == (9, 1 << 18))
 
     def row(name, source, replaces, launches, err, t):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -634,7 +691,7 @@ def main():
             perm_counts["poseidon2_permute"], *p2["poseidon2_permute"]),
         row("ntt_small", "boojum_tpu_torch/csrc/ntt_small.cu",
             "boojum_tpu/ntt/pallas_ntt.py:52", ntt_counts["ntt_small"],
-            max(r["err"] for r in k4_res), k4),
+            k4_err, k4[(9, 1 << 18, "twiddle")]),
         row("poseidon2_leaf_hashes", p2_src, P2_REPLACES,
             counts["poseidon2_leaf_hashes"],
             max(p2["poseidon2_leaf_hashes"][0],
@@ -647,8 +704,9 @@ def main():
             p2["poseidon2_node_layer"][1]),
     ]
     log("summary: " + json.dumps(dict(per_prove=costs, sass={
-        k: {f: v[f] for f in ("total", "integer", "imad", "integer_per_pass")
-            if f in v} for k, v in sass.items()})))
+        k: {f: v[f] for f in ("total", "integer", "imad", "integer_per_pass",
+                              "integer_per_element") if f in v}
+        for k, v in sass.items()})))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,25 @@
-"""Compare versions of the Poseidon2 and ntt_stage kernels on one card: SASS
-instruction counts and times, in one process.
+"""Compare versions of the Poseidon2, ntt_stage and ntt_small kernels on one
+card: SASS instruction counts and times, in one process.
 
-Each variant is ``LABEL=CSRC_DIR``; its `poseidon2.cu` and `ntt_stage.cu` are
-compiled by `boojum_tpu_torch/utils/cuda_build.build` into
-`boojum_tpu_torch/_build/compare/<label>/`. Per kernel it prints one JSON line
-of SASS counts (`cuda_build.sass_summary`): all instructions, integer-pipe
-ones, IMADs and the loops, and for the Poseidon2 permutation kernel the
-integer instructions per permutation (each round loop's body times its trip
-count). Then it times `poseidon2_permute` at B = 2^16 and 2^20 and
-`ntt_stage` at (256, 2^17) forward with the cross twiddle (twmode 1), the
+Each variant is ``LABEL=CSRC_DIR``; its `poseidon2.cu`, `ntt_stage.cu` and
+`ntt_small.cu` are compiled by `boojum_tpu_torch/utils/cuda_build.build`
+into `boojum_tpu_torch/_build/compare/<label>/`. Per kernel it prints one
+JSON line of SASS counts (`cuda_build.sass_summary`): all instructions,
+integer-pipe ones, IMADs and the loops, and for the Poseidon2 permutation
+kernel the integer instructions per permutation (each round loop's body
+times its trip count). Then it times `poseidon2_permute` at B = 2^16 and
+2^20, `ntt_stage` at (256, 2^17) forward with the cross twiddle (twmode 1)
+and `ntt_small` at (512, 2^18) and (8, 2^24), forward and inverse, the
 variants in turns (A B ... B A), and checks that every variant's outputs
-equal the first's. Needs the card and the CUDA toolkit:
+equal the first's. An `ntt_small.cu` without the cross-twiddle epilogue
+(before `tt_shift`) has the older entry (x, y, stage table, log_n, batch,
+inverse, n^-1, stream); the script calls each variant by its own. Needs the
+card and the CUDA toolkit:
 
     python3 scripts/torch_kernel_compare.py old=OLD_CSRC new=boojum_tpu_torch/csrc
 """
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -23,7 +28,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-LIBS = ("poseidon2", "ntt_stage")
+LIBS = ("poseidon2", "ntt_stage", "ntt_small")
 
 
 def sass_lines(label, out_dir):
@@ -40,12 +45,20 @@ def sass_lines(label, out_dir):
                                   **s)), flush=True)
 
 
-def load(out_dir):
+def load(out_dir, csrc):
+    import ctypes
+
     import numpy as np
     from boojum_tpu_torch.hash import poseidon2 as p2mod
     from boojum_tpu_torch.utils import cuda_build
-    p2, k1 = (cuda_build.open_lib(os.path.join(out_dir, "lib%s.so" % name),
-                                  name) for name in LIBS)
+    p2, k1, k4 = (cuda_build.open_lib(os.path.join(out_dir, "lib%s.so" % name),
+                                      name) for name in LIBS)
+    with open(os.path.join(csrc, "ntt_small.cu")) as f:
+        k4.epilogue = "tt_shift" in f.read()
+    if not k4.epilogue:
+        k4.ntt_small.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong,
+            ctypes.c_void_p]
     # the kernel before the fused entries took the diagonal factors
     # 2^shift, later ones take the shifts
     rc = np.asarray(p2mod._RC, np.uint64)
@@ -54,7 +67,7 @@ def load(out_dir):
         np.asarray([1 << s for s in p2mod._DIAG_SHIFTS], np.uint64)
     cuda_build.check(p2.poseidon2_set_constants(rc.ctypes.data,
                                                 diag.ctypes.data), "constants")
-    return p2, k1
+    return p2, k1, k4
 
 
 def main(argv):
@@ -62,6 +75,7 @@ def main(argv):
     import torch
     from boojum_tpu_torch.field import goldilocks as gl
     from boojum_tpu_torch.ntt import mxu_ntt, ntt
+    from boojum_tpu_torch.ntt import pallas_ntt as pn
     from boojum_tpu_torch.utils import cuda_build
 
     if not torch.cuda.is_available():
@@ -70,11 +84,15 @@ def main(argv):
     variants = dict(arg.split("=", 1) for arg in argv)
     dirs = {label: os.path.join(cuda_build.BUILD, "compare", label)
             for label in variants}
-    for label, csrc in variants.items():
-        cuda_build.build(LIBS, csrc, dirs[label])
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        # every variant's nvcc processes at once
+        list(pool.map(lambda lb: cuda_build.build(LIBS, variants[lb],
+                                                  dirs[lb]), variants))
+    for label in variants:
         sass_lines(label, dirs[label])
     # one card: load every variant's libraries into this process
-    loaded = {label: load(dirs[label]) for label in variants}
+    loaded = {label: load(dirs[label], csrc) for label, csrc in
+              variants.items()}
 
     rng = np.random.default_rng(11)
     stream = torch.cuda.current_stream().cuda_stream
@@ -105,12 +123,51 @@ def main(argv):
         return y
     cases["ntt_stage (256, 2^17) twmode 1"] = k1_call
 
-    labels = list(variants)
-    order = labels + labels[::-1]
+    def k4_case(log_n, b, inverse, tw=None, shift=0):
+        x4 = gl.from_u64(rng.integers(0, gl.ORDER, (1 << log_n, b),
+                                      dtype=np.uint64), "cuda")
+        st = pn._stage_tables_device(log_n, inverse, x4.device)
+
+        def call(lib):
+            if tw is not None and not lib[2].epilogue:
+                return None  # a kernel without the cross-twiddle epilogue
+            y = torch.empty_like(x4)
+            if lib[2].epilogue:
+                rc = lib[2].ntt_small(
+                    x4.data_ptr(), y.data_ptr(), st.data_ptr(),
+                    None if tw is None else tw.data_ptr(), log_n, b,
+                    int(inverse), shift, stream)
+            else:
+                rc = lib[2].ntt_small(x4.data_ptr(), y.data_ptr(),
+                                      st.data_ptr(), log_n, b, int(inverse),
+                                      gl.s_inv(1 << log_n), stream)
+            cuda_build.check(rc, "ntt_small")
+            return y
+        return call
+
+    for (log_n, b) in ((9, 1 << 18), (3, 1 << 24)):
+        for inverse in (False, True):
+            cases["ntt_small (%d, 2^%d) %s" % (
+                1 << log_n, b.bit_length() - 1,
+                "inverse" if inverse else "forward")] = k4_case(log_n, b,
+                                                                inverse)
+    # the NTT path's tables: inner (512, 8) at shift 15, outer re-laid
+    # (8, 2^21) at shift 3 (timed for the variants that take them)
+    inner = ntt.fourstep_twiddles_device(9, 3, False, x.device)
+    outer = pn.relaid_twiddles(ntt.fourstep_twiddles_device(
+        12, 12, False, x.device), 9)
+    cases["ntt_small (512, 2^18) twiddle"] = k4_case(9, 1 << 18, False,
+                                                     inner, 15)
+    cases["ntt_small (8, 2^24) twiddle"] = k4_case(3, 1 << 24, False,
+                                                   outer, 3)
+
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     for case, fn in cases.items():
+        labels = [label for label in variants
+                  if fn(loaded[label]) is not None]
+        order = labels + labels[::-1]
         ref = fn(loaded[labels[0]])
         times = {label: [] for label in labels}
         for label in order:

@@ -1,7 +1,8 @@
 """GPU-only checks of the port: a whole small proof, and the standalone NTT
 entry point, on the card against the same calls on the CPU, and each entry
 of the redesigned kernels bit-equal to its plain version on the card
-(`ntt_stage` at every template instance and a ragged width; the three
+(`ntt_stage` at every template instance and a ragged width; `ntt_small` at
+every template instance, with and without its cross twiddle; the three
 Poseidon2 entries at the trees' shapes). It skips without a GPU. This file
 imports no JAX, so on the GPU machine (which has none) it runs without the
 suite's conftest:
@@ -113,6 +114,22 @@ def test_ntt_stage_ragged_equals_plain(cuda, m):
             x = _rand(cuda, m + r, (r, m))
             assert torch.equal(mxu_ntt.ntt_cols_matmul(x, inverse=inverse),
                                mxu_ntt.ntt_stage_plain(x, inverse=inverse))
+
+
+@pytest.mark.parametrize("log_n", range(13))
+@pytest.mark.parametrize("mode", ["forward", "twiddle", "inverse"])
+def test_ntt_small_instances_equal_plain(cuda, log_n, mode):
+    n = 1 << log_n
+    for b in (1001, 2050):  # the 8-byte and the 16-byte path
+        x = _rand(cuda, n + b, (n, b))
+        shift = 1 if b % 2 == 0 else 0
+        kw = {}
+        if mode == "twiddle":
+            kw = dict(tw=_rand(cuda, n + b + 1, (n, b >> shift)),
+                      tw_shift=shift)
+        inverse = mode == "inverse"
+        assert torch.equal(pallas_ntt.ntt_small(x, log_n, inverse, **kw),
+                           pallas_ntt.ntt_small_plain(x, log_n, inverse, **kw))
 
 
 @pytest.mark.parametrize("b", [1, 127, 1 << 16, 1 << 20])
