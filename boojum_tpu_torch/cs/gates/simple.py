@@ -1,4 +1,4 @@
-# Copied from boojum_tpu/cs/gates/simple.py, without the device-witness twins.
+# Copied from boojum_tpu/cs/gates/simple.py; FmaGate's device twin runs on torch.
 """The basic gate set.
 
 Reference behavior (src/cs/gates/): fma_gate_without_constant.rs (c0·A·B +
@@ -285,6 +285,13 @@ class FmaGate:
             return npgl.add(npgl.mul(npgl.mul_scalar(av, c0), bv),
                             npgl.mul_scalar(cv, c1))
 
+        def fn_dev(vals):
+            # int64 tensors of u64 bit patterns (the JAX twin takes limbs)
+            from ...field import goldilocks as gl
+            av, bv, cv = vals
+            return gl.add(gl.mul(gl.mul(av, c0), bv), gl.mul(cv, c1))
+
+        fn.device_twin = fn_dev
         cs.set_values_with_dependencies(np.stack([a, b, c]), d, fn)
         cs.place_general_gate_batch("fma", (c0, c1), [c0, c1],
                                     np.stack([a, b, c, d], axis=1))

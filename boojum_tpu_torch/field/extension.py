@@ -3,7 +3,10 @@
 
 An element array is a pair ``(c0, c1)`` of int64 field tensors of one shape
 (`goldilocks`), meaning c0 + c1·u. Scalars are ``(int, int)`` tuples and go
-through the exact Python-int ``s2_*`` helpers, copied from the reference.
+through the exact Python-int ``s2_*`` helpers, copied from the reference; the
+array ops that take a scalar (`full`, `scale`, `base_scale`, `powers`) also
+take a device scalar, a (2,) int64 tensor [c0, c1] (the device transcript's
+challenges), and then never read it on the host.
 """
 
 from __future__ import annotations
@@ -60,11 +63,13 @@ def mul_by_base(a, b):
 
 
 def scale(a, c):
-    """Ext array times the ext scalar ``c = (int, int)``."""
+    """Ext array times the ext scalar ``c`` (host pair or device (2,))."""
     v0 = gl.mul(a[0], c[0])
     v1 = gl.mul(a[1], c[1])
     c0 = gl.add(v0, gl.mul(v1, NON_RESIDUE))
-    t = gl.mul(gl.add(a[0], a[1]), (c[0] + c[1]) % ORDER)
+    csum = gl.add(c[0], c[1]) if isinstance(c, torch.Tensor) \
+        else (c[0] + c[1]) % ORDER
+    t = gl.mul(gl.add(a[0], a[1]), csum)
     return (c0, gl.sub(gl.sub(t, v0), v1))
 
 
@@ -105,16 +110,21 @@ def exclusive_prefix_mul(a):
 
 def powers(c, n: int, device="cpu"):
     """[c^0, ..., c^(n-1)] of the ext scalar ``c`` as an (n,) ext array, by
-    doubling: the first ``have`` powers times c^have give the next ones."""
+    doubling: the first ``have`` powers times c^have give the next ones
+    (``have`` is a power of two until the last step, so a device scalar's
+    c^have is the square of the previous one)."""
     out = ones((n,), device)
-    have = 1
+    have, step = 1, c
     while have < n:
         take = min(have, n - have)
-        step = s2_pow(c, have)
+        if not isinstance(c, torch.Tensor):
+            step = s2_pow(c, have)
         nxt = scale((out[0][:take], out[1][:take]), step)
         out[0][have:have + take] = nxt[0]  # in place: filling the table
         out[1][have:have + take] = nxt[1]
         have += take
+        if isinstance(c, torch.Tensor) and have < n:
+            step = torch.stack(mul((step[0], step[1]), (step[0], step[1])))
     return out
 
 

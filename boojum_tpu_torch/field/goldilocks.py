@@ -61,7 +61,11 @@ def to_u64(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
 
 
-def full(shape, value: int, device="cpu") -> torch.Tensor:
+def full(shape, value, device="cpu") -> torch.Tensor:
+    """``value`` (a Python int, or a canonical 0-dim tensor on ``device``)
+    broadcast to ``shape``."""
+    if isinstance(value, torch.Tensor):
+        return value.expand(tuple(shape)).clone()
     return torch.full(tuple(shape), i64(value % ORDER), dtype=torch.int64,
                       device=device)
 

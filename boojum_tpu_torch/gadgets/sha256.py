@@ -1,4 +1,4 @@
-# Copied from boojum_tpu/gadgets/sha256.py, without the device-witness twins.
+# Copied from boojum_tpu/gadgets/sha256.py; the device-witness twins run on torch.
 """SHA-256 circuit gadget — the flagship benchmark circuit.
 
 Reference behavior: src/gadgets/sha256/mod.rs (:35 padding/blocks/digest) and
@@ -12,11 +12,21 @@ triples through TriXor lookups.
 The circuit semantics match the reference; the synthesis is batched where a
 step has independent parts (all 8 chunks of a word hit the lookup argument in
 one enforce_lookup_batch; deferred range checks flush as one batch).
+
+The resolver closures that the flagship records carry ``device_twin``s for
+`prover/device_witness.DeviceWitnessProgram`: each takes and returns int64
+tensors of u64 bit patterns shaped like its node's input and output places
+(the JAX twins take (lo, hi) u32 pairs). The witness pass's twin is
+`_sha256_witness_dev`, whose compression chain is kernel K5
+(`sha256_witness.compress_chain`).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 from ..cs.cs import ConstraintSystem
 from ..cs.gates import ConstantsAllocatorGate, FmaGate, ReductionGate
@@ -84,14 +94,20 @@ class Sha256Gadget:
         def fn(vals):
             return vals[0] ^ vals[1] ^ vals[2]
 
+        def fn_dev(vals):
+            return vals[0] ^ vals[1] ^ vals[2]
+
+        fn.device_twin = fn_dev
         cs.set_values_with_dependencies(np.stack([a, b, c]), out, fn)
         cs.enforce_lookup_batch(self.t["tri_xor"], np.stack([a, b, c, out]))
         return out
 
-    def _table3_batch(self, tid, a, b, c, np_fn):
+    def _table3_batch(self, tid, a, b, c, np_fn, dev_fn=None):
         cs = self.cs
         a = np.asarray(a, np.uint64)
         out = cs.alloc_variables(a.shape[0])
+        if dev_fn is not None:
+            np_fn.device_twin = dev_fn
         cs.set_values_with_dependencies(
             np.stack([a, np.asarray(b, np.uint64), np.asarray(c, np.uint64)]),
             out, np_fn)
@@ -101,12 +117,14 @@ class Sha256Gadget:
     def ch_batch(self, a, b, c):
         return self._table3_batch(
             self.t["ch"], a, b, c,
-            lambda v: ((v[0] & v[1]) ^ ((~v[0]) & v[2])) & np.uint64(_MASK4))
+            lambda v: ((v[0] & v[1]) ^ ((~v[0]) & v[2])) & np.uint64(_MASK4),
+            dev_fn=lambda v: ((v[0] & v[1]) ^ (~v[0] & v[2])) & _MASK4)
 
     def maj_batch(self, a, b, c):
         return self._table3_batch(
             self.t["maj"], a, b, c,
-            lambda v: (v[0] & v[1]) ^ (v[0] & v[2]) ^ (v[1] & v[2]))
+            lambda v: (v[0] & v[1]) ^ (v[0] & v[2]) ^ (v[1] & v[2]),
+            dev_fn=lambda v: (v[0] & v[1]) ^ (v[0] & v[2]) ^ (v[1] & v[2]))
 
     def range_check_chunks(self, chunks):
         """Range-check a list of 4-bit chunk handles in triples via TriXor
@@ -514,6 +532,145 @@ def _flatten_witness(wit: dict) -> np.ndarray:
     return np.concatenate([v.reshape(-1) for v in wit.values()])
 
 
+# ---------------------------------------------------------------------------
+# Device twin of _sha256_witness: the SAME witness values as one int64 tensor
+# on the device, so repeated proving uploads only the input bytes instead of
+# the witness columns (the device-side answer to the reference's
+# take_witness_using_hints, src/cs/implementations/witness.rs:325). The
+# schedule and the chained rounds are kernel K5; the decompositions that
+# follow are elementwise torch ops on its (nb, 64) outputs.
+# ---------------------------------------------------------------------------
+
+
+def _t_ror(v, r):
+    return ((v >> r) | (v << (32 - r))) & 0xFFFFFFFF
+
+
+def _t_chunks8(v):
+    return torch.stack([(v >> (4 * i)) & 0xF for i in range(8)], dim=-1)
+
+
+def _t_rot_parts(v, rotation):
+    m = rotation % 4
+    low = v & ((1 << m) - 1)
+    aligned = [(v >> (m + 4 * i)) & 0xF for i in range(7)]
+    high = v >> (m + 28)
+    t1 = low + (aligned[0] << m) + (aligned[1] << (m + 4)) \
+        + (aligned[2] << (m + 8))
+    t2 = t1 + (aligned[3] << (m + 12)) + (aligned[4] << (m + 16)) \
+        + (aligned[5] << (m + 20))
+    if m in (1, 2):
+        skey = (high << m) | low
+        srev = (low << (4 - m)) | high
+    else:  # m == 3
+        skey = (low << 1) | high
+        srev = (high << 3) | low
+    return torch.stack([low, *aligned, high, t1, t2, skey, srev], dim=-1)
+
+
+def _t_from_chunks_parts(word):
+    return torch.stack([word & 0xFFFF, word >> 16, word], dim=-1)
+
+
+def _t_range36_parts(t):
+    chunks = [(t >> (4 * i)) & 0xF for i in range(9)]
+    u32 = t & 0xFFFFFFFF
+    return torch.stack([*chunks, u32 & 0xFFFF, u32 >> 16, u32], dim=-1)
+
+
+def _t_dec_parts(word):
+    ch = [(word >> (4 * i)) & 0xF for i in range(8)]
+    return torch.stack([*ch, word & 0xFFFF, word >> 16], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_words(words: tuple, device) -> torch.Tensor:
+    """A constant word vector on ``device``, uploaded once."""
+    return torch.tensor(words, dtype=torch.int64).to(device)
+
+
+def _sha256_witness_dev(vals: torch.Tensor, nb: int, init_state) -> torch.Tensor:
+    """(nb·64,) int64 message bytes -> the flattened witness of
+    `_sha256_witness`, in its order, as int64 values (the wide sums as full
+    values lo + hi·2^32)."""
+    from .sha256_witness import ROW, compress_chain
+
+    init = _device_words(tuple(int(x) for x in init_state), vals.device)
+    rows = compress_chain(vals.reshape(nb, 64), init)
+
+    def wide(name, cols):
+        return rows[ROW[name + "_lo"], :, :cols] \
+            | (rows[ROW[name + "_hi"], :, :cols] << 32)
+
+    out = {}
+    w = rows[ROW["W"]]
+    out["W"] = w
+    out["sch_t"] = wide("sch", 48)
+    x0 = w[:, 1:49].reshape(-1)
+    x1 = w[:, 14:62].reshape(-1)
+    for r in (7, 18):
+        out[f"rot_x0_{r}"] = _t_rot_parts(x0, r).reshape(nb, 48, 13)
+    for r in (17, 19, 10):
+        out[f"rot_x1_{r}"] = _t_rot_parts(x1, r).reshape(nb, 48, 13)
+    s0w = _t_ror(x0, 7) ^ _t_ror(x0, 18) ^ (x0 >> 3)
+    s1w = _t_ror(x1, 17) ^ _t_ror(x1, 19) ^ (x1 >> 10)
+    out["sch_s0x"] = _t_chunks8(s0w).reshape(nb, 48, 8)
+    out["sch_s1x"] = _t_chunks8(s1w).reshape(nb, 48, 8)
+    out["sch_s0w"] = _t_from_chunks_parts(s0w).reshape(nb, 48, 3)
+    out["sch_s1w"] = _t_from_chunks_parts(s1w).reshape(nb, 48, 3)
+    out["sch_hi"] = rows[ROW["sch_hi"], :, :46]
+    out["sch_rc36"] = _t_range36_parts(out["sch_t"][:, 46:48].reshape(-1)) \
+        .reshape(nb, 2, 12)
+
+    state_in = rows[ROW["state_in"], :, :8]
+    new_e, new_a = rows[ROW["new_e"]], rows[ROW["new_a"]]
+    out["new_e"] = new_e
+    out["new_a"] = new_a
+    e_in = torch.cat([state_in[:, 4:5], new_e[:, :63]], dim=1).reshape(-1)
+    a_in = torch.cat([state_in[:, 0:1], new_a[:, :63]], dim=1).reshape(-1)
+    for r in (6, 11, 25):
+        out[f"rot_e_{r}"] = _t_rot_parts(e_in, r).reshape(nb, 64, 13)
+    for r in (2, 13):
+        out[f"rot_a_{r}"] = _t_rot_parts(a_in, r).reshape(nb, 64, 13)
+    words = {"s1w_": rows[ROW["s1"]], "chw_": rows[ROW["ch"]],
+             "s0w_": rows[ROW["s0"]], "majw_": rows[ROW["maj"]]}
+    out["rnd_s1x"] = _t_chunks8(words["s1w_"])
+    out["rnd_chx"] = _t_chunks8(words["chw_"])
+    out["rnd_s0x"] = _t_chunks8(words["s0w_"])
+    out["rnd_majx"] = _t_chunks8(words["majw_"])
+    for k, v in words.items():
+        out["rnd_" + k] = _t_from_chunks_parts(v)
+    for k in ("tmp1", "tmp1w", "te", "ta"):
+        out["rnd_" + k] = wide(k, 64)
+    out["rnd_e36"] = _t_range36_parts(out["rnd_te"])
+    out["rnd_a36"] = _t_range36_parts(out["rnd_ta"])
+    fin_t = wide("fin", 8)
+    out["fin_t"] = fin_t
+    out["fin_hi"] = rows[ROW["fin_hi"], :, :8]
+    state_out = rows[ROW["fin_lo"], :, :8]
+    out["state_out"] = state_out
+    out["state_dec"] = _t_dec_parts(state_out)  # (nb, 8, 10)
+    out["init_dec"] = _t_dec_parts(init)
+
+    dchunks = out["state_dec"][-1, :, :8]  # (8 words, 8 chunks)
+    # big-endian bytes of each word: byte i = chunk 2i+1 << 4 | chunk 2i
+    word_bytes = (dchunks[:, 1::2] << 4) | dchunks[:, 0::2]  # (8, 4)
+    out["digest"] = word_bytes.flip(1).reshape(-1)
+
+    flush = torch.cat([out["sch_hi"].reshape(-1), out["fin_hi"].reshape(-1),
+                       out["state_dec"][:, :, :8].reshape(-1),
+                       out["init_dec"][:, :8].reshape(-1)])
+    pad = (-flush.shape[0]) % 3
+    if pad:
+        flush = torch.cat([flush, flush.new_zeros(pad)])
+    tri = flush.reshape(-1, 3)
+    out["flush_x"] = tri[:, 0] ^ tri[:, 1] ^ tri[:, 2]
+    for k in ("sch_rc36", "rnd_e36", "rnd_a36"):
+        ch = out[k][..., :9].reshape(-1, 9)
+        out[k + "_x"] = ch[:, 0::3] ^ ch[:, 1::3] ^ ch[:, 2::3]
+    return torch.cat([v.reshape(-1) for v in out.values()])
+
+
 def sha256(cs: ConstraintSystem, input_bytes_vars: np.ndarray,
            table_ids: dict) -> np.ndarray:
     """input_bytes_vars: (len,) byte variable handles (range-checked by the
@@ -549,6 +706,10 @@ def sha256(cs: ConstraintSystem, input_bytes_vars: np.ndarray,
         return _flatten_witness(_sha256_witness(
             np.asarray(vals, _U).reshape(nb, 64), init_state))
 
+    def witness_fn_dev(vals):
+        return _sha256_witness_dev(vals.reshape(-1), nb, init_state)
+
+    witness_fn.device_twin = witness_fn_dev
     cs.set_values_with_dependencies(msg_h, all_h, witness_fn)
 
     # unpack handles with the witness layout

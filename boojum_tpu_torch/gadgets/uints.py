@@ -1,14 +1,20 @@
-# Copied from boojum_tpu/gadgets/uints.py, without the device-witness twins.
+# Copied from boojum_tpu/gadgets/uints.py; the device-witness twins run on torch.
 """Byte / u32 allocation helpers (reference src/gadgets/u8, u32 essentials).
 
 UInt8 range checks go through the sha256 4-bit tables when present
 (byte = hi·16 + lo with both chunks checked by TriXor lookups), mirroring the
 bench circuit's table budget.
+
+Each resolver closure carries a ``device_twin`` for
+`prover/device_witness.DeviceWitnessProgram`: it takes and returns int64
+tensors of u64 bit patterns, shaped like the node's input and output places
+(the JAX twins take (lo, hi) u32 pairs instead).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..cs.cs import ConstraintSystem
 from ..cs.gates import ConstantsAllocatorGate, FmaGate
@@ -27,6 +33,11 @@ def allocate_u8_checked_batch(cs: ConstraintSystem, values, table_ids) -> np.nda
         v = vals[0]
         return np.stack([v & np.uint64(0xF), v >> np.uint64(4)])
 
+    def fn_dev(vals):
+        v = vals[0]
+        return torch.stack([v & 0xF, v >> 4])
+
+    fn.device_twin = fn_dev
     cs.set_values_with_dependencies(bytes_v[None, :], np.stack([los, his]), fn)
     one = ConstantsAllocatorGate.allocate_constant(cs, 1)
     ones = np.full(n, one, np.uint64)
@@ -44,6 +55,10 @@ def allocate_u8_checked_batch(cs: ConstraintSystem, values, table_ids) -> np.nda
     def xor_fn(vals):
         return vals[0] ^ vals[1] ^ vals[2]
 
+    def xor_fn_dev(vals):
+        return vals[0] ^ vals[1] ^ vals[2]
+
+    xor_fn.device_twin = xor_fn_dev
     cs.set_values_with_dependencies(tri, out, xor_fn)
     cs.enforce_lookup_batch(table_ids["tri_xor"],
                             np.concatenate([tri, out[None, :]]))

@@ -36,11 +36,16 @@ def bitreverse_indices(log_n: int) -> np.ndarray:
     return rev.astype(np.int64)
 
 
+@functools.lru_cache(maxsize=None)
+def _bitreverse_device(log_n: int, device) -> torch.Tensor:
+    return torch.from_numpy(bitreverse_indices(log_n)).to(device)
+
+
 def bitreverse(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Apply the bitreversal permutation along ``dim``."""
     n = x.shape[dim]
-    perm = torch.from_numpy(bitreverse_indices(n.bit_length() - 1)).to(x.device)
-    return x.index_select(dim, perm)
+    return x.index_select(dim, _bitreverse_device(n.bit_length() - 1,
+                                                  x.device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,6 +67,7 @@ class NttPlan:
         self.n_inv = gl.s_inv(n)
         fwd_full = _powers_u64(omega, max(n // 2, 1))
         inv_full = _powers_u64(gl.s_inv(omega), max(n // 2, 1))
+        self._device_twiddles = {}
         self.fwd_twiddles_host = []
         self.inv_twiddles_host = []
         for k in range(log_n):
@@ -70,8 +76,14 @@ class NttPlan:
             self.inv_twiddles_host.append(np.ascontiguousarray(inv_full[:: 1 << k][:half]))
 
     def twiddle(self, k: int, inverse: bool, device) -> torch.Tensor:
-        host = self.inv_twiddles_host[k] if inverse else self.fwd_twiddles_host[k]
-        return gl.from_u64(host, device)
+        """Stage k's twiddles on ``device``, uploaded once per device (an
+        upload per call would make the host wait for the device)."""
+        key = (k, inverse, str(device))
+        if key not in self._device_twiddles:
+            host = self.inv_twiddles_host[k] if inverse \
+                else self.fwd_twiddles_host[k]
+            self._device_twiddles[key] = gl.from_u64(host, device)
+        return self._device_twiddles[key]
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,10 +128,14 @@ def intt_cols(y: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     return gl.mul(y, plan.n_inv)
 
 
+@functools.lru_cache(maxsize=None)
+def _powers_device(base: int, n: int, device) -> torch.Tensor:
+    return gl.from_u64(_powers_u64(base, n), device)
+
+
 def distribute_powers(x: torch.Tensor, base: int) -> torch.Tensor:
     """x[i, :] *= base^i (reference src/fft/mod.rs:308)."""
-    powers = gl.from_u64(_powers_u64(base, x.shape[0]), x.device)
-    return gl.mul(x, powers[:, None])
+    return gl.mul(x, _powers_device(base, x.shape[0], x.device)[:, None])
 
 
 def coset_ntt_cols(x, coset: int, plan: NttPlan):

@@ -34,6 +34,19 @@ def from_device(a: torch.Tensor) -> np.ndarray:
     return gl.to_u64(a)
 
 
+def upload(arr, device) -> torch.Tensor:
+    """Host integer array (u64 bit patterns or int64) -> int64 tensor on
+    ``device``. On a CUDA device the copy goes through pinned memory without
+    blocking, so the host does not wait for the device (a pageable copy
+    synchronizes)."""
+    a = np.ascontiguousarray(arr)
+    t = torch.from_numpy(a.view(np.int64) if a.dtype == np.uint64
+                         else a.astype(np.int64, copy=False))
+    if torch.device(device).type != "cuda":
+        return t.clone().to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 COL_BLOCK = 64  # fixed column-block width of every NTT/LDE call
 
 
@@ -85,11 +98,17 @@ def _lde_block(blk: torch.Tensor, pows: torch.Tensor) -> torch.Tensor:
     return out.reshape(n, lde_factor, b).transpose(0, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _coset_powers_device(log_n: int, lde_factor: int, device) -> torch.Tensor:
+    """`_coset_powers_host` on ``device``, uploaded once (an upload per
+    oracle would make the host wait for the device each time)."""
+    return gl.from_u64(_coset_powers_host(log_n, lde_factor), device)
+
+
 def monomials_to_lde(mono: torch.Tensor, lde_factor: int) -> torch.Tensor:
     """(n, k) monomials -> (lde, n, k) bitreversed coset evals."""
     n = mono.shape[0]
-    pows = gl.from_u64(_coset_powers_host(n.bit_length() - 1, lde_factor),
-                       mono.device)
+    pows = _coset_powers_device(n.bit_length() - 1, lde_factor, mono.device)
     return _blocked(lambda b: _lde_block(b, pows), mono)
 
 
@@ -108,14 +127,11 @@ def powers_of_ext(z, n: int, device):
     return ext2.powers(z, n, device)
 
 
-def eval_monomials_at_ext(mono: torch.Tensor, z_pows) -> list:
+def eval_monomials_at_ext(mono: torch.Tensor, z_pows):
     """Σ c_i·z^i for base-coefficient polys (n, k) at an ext point given by
-    its (n,) power table; returns one host (c0, c1) int pair per poly."""
-    s0 = gl.sum_mod(gl.mul(mono, z_pows[0][:, None]), 0)
-    s1 = gl.sum_mod(gl.mul(mono, z_pows[1][:, None]), 0)
-    r0 = gl.to_u64(s0)
-    r1 = gl.to_u64(s1)
-    return [(int(a), int(b)) for a, b in zip(r0, r1)]
+    its (n,) power table -> the (k,) c0 and c1 component tensors."""
+    return (gl.sum_mod(gl.mul(mono, z_pows[0][:, None]), 0),
+            gl.sum_mod(gl.mul(mono, z_pows[1][:, None]), 0))
 
 
 def sum_ext(a, dim: int = 0):

@@ -19,6 +19,7 @@ from ..field import goldilocks as gl
 from ..field.goldilocks import MULTIPLICATIVE_GENERATOR, ORDER
 from ..hash.pallas_poseidon2 import leaf_hashes, node_layer
 from ..utils import npgl
+from .device import upload
 from .fri import FriResult, interpolate_final_host
 from .proof import OracleQuery
 
@@ -45,10 +46,13 @@ class DeviceTree:
 
     def get_cap(self):
         if self._cap_host is None:
-            arr = gl.to_u64(self.layers[-1])
-            self._cap_host = [tuple(int(arr[i, j]) for i in range(4))
-                              for j in range(arr.shape[1])]
+            self.set_cap_host(gl.to_u64(self.layers[-1]))
         return self._cap_host
+
+    def set_cap_host(self, arr: np.ndarray):
+        """Keep the cap from its host u64 copy (4, cap) fetched elsewhere."""
+        self._cap_host = [tuple(int(arr[i, j]) for i in range(4))
+                          for j in range(arr.shape[1])]
 
     def prefetch_proofs(self, leaf_indices):
         """Gather every queried leaf and sibling path in one host transfer
@@ -58,7 +62,7 @@ class DeviceTree:
             return
         depth = len(self.layers) - 1  # the path excludes the cap layer
         dev = self.layers[0].device
-        idx = torch.tensor(idxs, dtype=torch.int64, device=dev)
+        idx = upload(np.asarray(idxs, np.int64), dev)
         parts = [self.layers[level][:, (idx >> level) ^ 1]
                  for level in range(depth)]
         parts.append(self.layers[0][:, idx])
@@ -93,8 +97,8 @@ class DeviceFlatOracle:
         e = self.elems_per_leaf
         leaf_idxs = sorted(set(int(i) // e for i in flat_indices))
         self.tree.prefetch_proofs(leaf_idxs)
-        starts = torch.tensor(leaf_idxs, dtype=torch.int64,
-                              device=self.c0.device)[:, None] * e
+        starts = upload(np.asarray(leaf_idxs, np.int64),
+                        self.c0.device)[:, None] * e
         gidx = (starts + torch.arange(e, device=self.c0.device)).reshape(-1)
         both = gl.to_u64(torch.stack([self.c0[gidx], self.c1[gidx]]))
         v0 = both[0].reshape(-1, e)
@@ -148,35 +152,62 @@ def do_fri_device(h, transcript, schedule: list[int], lde_factor: int,
     layer, absorb its cap, fold by 2^k with the transcript's challenge, and
     interpolate the final layer on the host. ``roots`` is the bitreversed
     inverse-root table of the full domain (`fri._inverse_roots_bitreversed`).
-    Byte-identical to the reference's fri.do_fri on the same input."""
+    Byte-identical to the reference's fri.do_fri on the same input.
+
+    Under a device transcript the caps and challenges stay on the device
+    (the challenge's squaring chain is `sq_chain_dev`), and the final layer
+    is left in ``result.final_layer`` = (c0, c1, coset, final degree) for
+    the prover to fetch in its handoff and pass to `finish_fri`."""
+    from .device_transcript import sq_chain_dev
+
+    is_dev = getattr(transcript, "IS_DEVICE", False)
     result = FriResult()
     cur0, cur1 = h
     coset_inv = pow(MULTIPLICATIVE_GENERATOR, ORDER - 2, ORDER)
     for stage, k in enumerate(schedule):
         oracle = _commit_layer(cur0, cur1, k, cap_size)
-        transcript.witness_merkle_tree_cap(oracle.get_cap())
+        if is_dev:
+            transcript.witness_merkle_tree_cap_dev(oracle.tree.layers[-1])
+        else:
+            transcript.witness_merkle_tree_cap(oracle.get_cap())
         if stage == 0:
             result.base_oracle = oracle
         else:
             result.intermediate_oracles.append(oracle)
-        c = (transcript.get_challenge(), transcript.get_challenge())
-        chs, cosets = [], []
+        if is_dev:
+            chs = sq_chain_dev(transcript.get_ext_challenge(), k)
+        else:
+            c = (transcript.get_challenge(), transcript.get_challenge())
+            chs = []
+            for _ in range(k):
+                chs.append(c)
+                c = ext2.s2_mul(c, c)
+        cosets = []
         for _ in range(k):
-            chs.append(c)
             cosets.append(coset_inv)
-            c = ext2.s2_mul(c, c)
             coset_inv = coset_inv * coset_inv % ORDER
         cur0, cur1 = _fold(cur0, cur1, roots, chs, cosets)
 
-    m = int(cur0.shape[0])
-    final_degree = m // lde_factor
+    final_degree = int(cur0.shape[0]) // lde_factor
     coset = int(npgl.inv(np.uint64(coset_inv)))
-    mono0 = np.asarray(interpolate_final_host(gl.to_u64(cur0), coset), np.uint64)
-    mono1 = np.asarray(interpolate_final_host(gl.to_u64(cur1), coset), np.uint64)
+    result.final_layer = (cur0, cur1, coset, final_degree)
+    if not is_dev:
+        finish_fri(result, gl.to_u64(cur0), gl.to_u64(cur1), transcript)
+    return result
+
+
+def finish_fri(result: FriResult, f0: np.ndarray, f1: np.ndarray,
+               transcript):
+    """Interpolate the final FRI layer from its host u64 values f0, f1 (the
+    tensors of ``result.final_layer``), check its degree, absorb its
+    monomials into the host transcript and keep them in the result."""
+    _, _, coset, final_degree = result.final_layer
+    mono0 = np.asarray(interpolate_final_host(f0, coset), np.uint64)
+    mono1 = np.asarray(interpolate_final_host(f1, coset), np.uint64)
     assert not mono0[final_degree:].any(), "FRI final poly degree too high"
     assert not mono1[final_degree:].any(), "FRI final poly degree too high"
     transcript.witness_field_elements([int(x) for x in mono0[:final_degree]])
     transcript.witness_field_elements([int(x) for x in mono1[:final_degree]])
     result.monomial_forms = ([int(x) for x in mono0[:final_degree]],
                              [int(x) for x in mono1[:final_degree]])
-    return result
+    result.final_layer = None

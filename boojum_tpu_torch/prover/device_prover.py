@@ -11,10 +11,15 @@ the query openings. NTTs run through the `ntt_stage` kernel and every Merkle
 tree through the `poseidon2_leaf_hashes` and `poseidon2_node_layer` kernel
 entries on the GPU.
 
+As in the reference `DeviceProver`, the witness oracle comes from the device
+witness program (`device_witness.DeviceWitnessProgram`, its SHA-256
+compression chain on kernel K5) whenever the circuit supports it, and the
+challenges from the device transcript (`device_transcript.DeviceTranscript`,
+its sponge on kernel K6) by default on a CUDA device: every challenge stays
+on the device until one handoff to the host transcript before the queries.
+
 Not ported, and raising NotImplementedError: general-purpose lookup mode,
-the device transcript, `pow_bits > 0`, and tree hashers other than
-poseidon2. The device witness program is not ported either: the witness is
-always materialized on the host.
+`pow_bits > 0`, and tree hashers other than poseidon2.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from ..ntt import ntt
 from ..transcript import make_transcript
 from ..utils import npgl
 from . import device as dops
-from .device_merkle import do_fri_device
+from .device_merkle import do_fri_device, finish_fri
+from .device_transcript import DeviceTranscript, ext_pow_table_dev
+from .device_witness import DeviceWitnessProgram
 from .fri import _inverse_roots_bitreversed, compute_fri_schedule
 from .jit_ops import EV, affine
 from .oracles import DeviceOracle, eval_monomial_sets_at
@@ -93,6 +100,7 @@ class DeviceProver:
         self.fri_lde = proof_config.fri_lde_factor
         self.last_stage_times = {}
         self._tables = None  # prove-invariant device tables, built once
+        self._witness_program = False  # not built yet; then a program or None
 
     def _invariant_tables(self):
         """Device tables that depend only on the domain: X over the quotient
@@ -107,14 +115,28 @@ class DeviceProver:
                 "l1": dops.unnormalized_l1_lde(n, qd, dev).reshape(-1),
                 "vanish_inv": gl.from_u64(np.repeat(vi, n), dev),
                 "roots": gl.from_u64(_inverse_roots_bitreversed(fri_lde * n), dev),
+                # ω^i on the base domain
+                "x_vals": gl.from_u64(npgl.powers(gl.domain_generator(
+                    n.bit_length() - 1), n), dev),
             }
         return self._tables
+
+    def witness_program(self):
+        """The circuit's DeviceWitnessProgram, built at the first prove, or
+        None when the circuit does not support one."""
+        if self._witness_program is False:
+            self._witness_program = (
+                DeviceWitnessProgram(self.cs, self.n, self.device)
+                if DeviceWitnessProgram.supported(self.cs) else None)
+        return self._witness_program
 
     def prove(self, transcript_kind: str = "poseidon",
               hasher: str = "poseidon2", verbose: bool = False,
               device_transcript: bool = None) -> Proof:
-        if device_transcript:
-            raise NotImplementedError("the device transcript is not ported")
+        """``device_transcript``: None takes the device transcript on a CUDA
+        device and the host one on the CPU (the reference's rule, fuse =
+        off the CPU); True takes it anywhere (on the CPU through its plain
+        versions); False keeps the host transcript."""
         cs = self.cs
         cfg = self.cfg
         _check_supported(cs, cfg, hasher)
@@ -151,26 +173,69 @@ class DeviceProver:
                                 tree_lde=tree_lde, monomials=monomials,
                                 device=dev)
 
-        transcript = make_transcript(transcript_kind)
+        eligible = transcript_kind in ("poseidon", "poseidon2")
+        if device_transcript and not eligible:
+            raise ValueError("the device transcript needs the poseidon or "
+                             "poseidon2 transcript, not %r" % transcript_kind)
+        use_dev_ts = eligible and (dev.type == "cuda"
+                                   if device_transcript is None
+                                   else bool(device_transcript))
+        transcript = (DeviceTranscript(transcript_kind, dev) if use_dev_ts
+                      else make_transcript(transcript_kind))
+
+        def absorb_cap(orc):
+            if use_dev_ts:  # the device cap layer, no sync
+                transcript.witness_merkle_tree_cap_dev(orc.tree.layers[-1])
+            else:
+                transcript.witness_merkle_tree_cap(orc.get_cap())
+
+        def ext_challenge():
+            if use_dev_ts:  # a (2,) device tensor
+                return transcript.get_ext_challenge()
+            return _s2(tuple(transcript.get_multiple_challenges(2)))
+
+        def pow_table(c, count):
+            """[1, c, .., c^(count-1)]: rows of a device table, or host
+            pairs."""
+            if use_dev_ts:
+                return ext_pow_table_dev(c, count)
+            pows = [(1, 0)]
+            for _ in range(count - 1):
+                pows.append(ext2.s2_mul(pows[-1], c))
+            return pows
 
         # -- stage 0: bind VK cap and public inputs ---------------------------
         transcript.witness_merkle_tree_cap(vk.setup_merkle_tree_cap)
-        variables_cols, witness_cols, mult_cols = \
-            materialize_witness_columns(cs, n)
-        public_inputs_with_values = [(col, row, int(variables_cols[col, row]))
-                                     for (col, row) in cs.public_inputs]
+        num_var_polys = sb.copy_permutation_polys.shape[0]
+        num_wit_polys = geometry.num_witness_columns
+        num_mult_polys = 1 if lp.lookup_is_allowed else 0
+        program = self.witness_program()
+        if program is not None:
+            # only the circuit inputs cross to the device
+            public_inputs_with_values = []  # supported() excludes publics
+            witness_src = program(getattr(cs, "witness_overrides", None))
+            assert witness_src.shape == (
+                n, num_var_polys + num_wit_polys + num_mult_polys)
+            stage("witness materialize")
+        else:
+            variables_cols, witness_cols, mult_cols = \
+                materialize_witness_columns(cs, n)
+            public_inputs_with_values = [
+                (col, row, int(variables_cols[col, row]))
+                for (col, row) in cs.public_inputs]
+            assert (variables_cols.shape[0], witness_cols.shape[0],
+                    mult_cols.shape[0]) == (num_var_polys, num_wit_polys,
+                                            num_mult_polys)
+            witness_src = np.concatenate(
+                [variables_cols, witness_cols, mult_cols], axis=0)
+            stage("witness columns")
         public_input_values = [v for (_, _, v) in public_inputs_with_values]
         transcript.witness_field_elements(public_input_values)
-        stage("witness columns")
 
         # -- stage 1: witness oracle -----------------------------------------
-        num_var_polys = variables_cols.shape[0]
-        num_wit_polys = witness_cols.shape[0]
-        num_mult_polys = mult_cols.shape[0]
-        witness_oracle = oracle(
-            np.concatenate([variables_cols, witness_cols, mult_cols], axis=0),
-            used_lde, tree_lde=fri_lde)
-        transcript.witness_merkle_tree_cap(witness_oracle.get_cap())
+        witness_oracle = oracle(witness_src, used_lde, tree_lde=fri_lde)
+        del witness_src
+        absorb_cap(witness_oracle)
         num_sigma_polys = sb.copy_permutation_polys.shape[0]
         num_const_polys = sb.constant_columns.shape[0]
         num_table_polys = sb.lookup_tables_columns.shape[0]
@@ -185,9 +250,9 @@ class DeviceProver:
         stage("witness oracle")
 
         # -- stage 2: copy permutation z + partial products -------------------
-        beta = _s2(tuple(transcript.get_multiple_challenges(2)))
-        gamma = _s2(tuple(transcript.get_multiple_challenges(2)))
-        x_vals = gl.from_u64(npgl.powers(omega, n), dev)
+        beta = ext_challenge()
+        gamma = ext_challenge()
+        x_vals = tables["x_vals"]
         non_res = non_residues_for_copy_permutation(n, num_var_polys)
 
         chunk_ratios = []
@@ -214,12 +279,10 @@ class DeviceProver:
         lookup_a_polys, lookup_b_polys = [], []
         num_lookup_subargs = lp.num_sublookup_arguments_for_geometry(geometry)
         if lp.lookup_is_allowed:
-            lookup_beta = _s2(tuple(transcript.get_multiple_challenges(2)))
-            lookup_gamma = _s2(tuple(transcript.get_multiple_challenges(2)))
+            lookup_beta = ext_challenge()
+            lookup_gamma = ext_challenge()
             width = lp.lookup_width()
-            gamma_pows = [(1, 0)]
-            for _ in range(width):
-                gamma_pows.append(ext2.s2_mul(gamma_pows[-1], lookup_gamma))
+            gamma_pows = pow_table(lookup_gamma, width + 1)
             pw = lp.specialized_columns_per_repetition()
             base_off = geometry.num_columns_under_copy_permutation
             tid_cols = sb.table_ids_column_idxes
@@ -248,11 +311,11 @@ class DeviceProver:
         stage2_oracle = oracle(stage2_lagrange, used_lde, tree_lde=fri_lde)
         num_stage2 = stage2_lagrange.shape[1]
         del stage2_lagrange
-        transcript.witness_merkle_tree_cap(stage2_oracle.get_cap())
+        absorb_cap(stage2_oracle)
         stage("stage-2 oracle")
 
         # -- stage 5: alpha powers ---------------------------------------------
-        alpha = _s2(tuple(transcript.get_multiple_challenges(2)))
+        alpha = ext_challenge()
         num_intermediates = len(intermediates)
         total_lookup_terms = num_lookup_subargs + num_mult_polys
         total_specialized_terms = sum(
@@ -264,9 +327,7 @@ class DeviceProver:
             for ev in cs.evaluators_general)
         total_terms = (total_lookup_terms + total_specialized_terms
                        + total_general_terms + 1 + 1 + num_intermediates)
-        alpha_pows = [(1, 0)]
-        for _ in range(total_terms - 1):
-            alpha_pows.append(ext2.s2_mul(alpha_pows[-1], alpha))
+        alpha_pows = pow_table(alpha, total_terms)
         lookup_alphas = iter(alpha_pows[:total_lookup_terms])
         spec_alphas = iter(alpha_pows[total_lookup_terms:
                                       total_lookup_terms + total_specialized_terms])
@@ -356,8 +417,7 @@ class DeviceProver:
         acc = acc + zm1.mul_base(tables["l1"]).scale(next(rem_alphas))
 
         # z(x·ω): monomials c_k·ω^k, then its qd-coset LDE
-        scale_w = gl.from_u64(npgl.powers(omega, n), dev)
-        z_shift_mono = gl.mul(stage2_oracle.monomials[:, 0:2], scale_w[:, None])
+        z_shift_mono = gl.mul(stage2_oracle.monomials[:, 0:2], x_vals[:, None])
         zs = dops.monomials_to_lde(z_shift_mono, qd)  # (qd, n, 2)
         z_shifted = EV(zs[:, :, 0].reshape(-1), zs[:, :, 1].reshape(-1))
         del zs
@@ -394,12 +454,18 @@ class DeviceProver:
             .reshape(n, 2 * qd).contiguous()
         del q_mono, q2
         quotient_oracle = oracle(None, fri_lde, monomials=quotient_monomials)
-        transcript.witness_merkle_tree_cap(quotient_oracle.get_cap())
+        absorb_cap(quotient_oracle)
         stage("quotient oracle")
 
         # -- stage 8: evaluations at z, z·ω, 0 ---------------------------------
-        z_pt = _s2(tuple(transcript.get_multiple_challenges(2)))
-        zw = ext2.s2_mul(z_pt, (omega, 0))
+        # Every value is built on the device as a (k, 2) table. The device
+        # transcript absorbs the tables interleaved; the host transcript
+        # fetches them in one transfer and absorbs host pairs.
+        z_pt = ext_challenge()
+        if use_dev_ts:
+            zw = torch.stack([gl.mul(z_pt[0], omega), gl.mul(z_pt[1], omega)])
+        else:
+            zw = ext2.s2_mul(z_pt, (omega, 0))
         w_mono = witness_oracle.monomials
         s_mono = setup_oracle.monomials
         st2_mono = stage2_oracle.monomials
@@ -408,60 +474,66 @@ class DeviceProver:
             (w_mono, z_pt), (s_mono, z_pt), (st2_mono, z_pt), (q_mono_t, z_pt),
             (st2_mono[:, 0:2], zw)])
 
-        def ext_vals(base_vals, pairs):
-            out = []
-            for (i0, i1) in pairs:
-                f0, f1 = base_vals[i0], base_vals[i1]
-                # f0(z) + u·f1(z): u·(a + b·u) = 7b + a·u
-                out.append(((f0[0] + 7 * f1[1]) % P, (f0[1] + f1[0]) % P))
-            return out
+        def base_range(vals, lo, hi):
+            """Base polys lo..hi evaluated at an ext point."""
+            return (vals[0][lo:hi], vals[1][lo:hi])
 
-        values_at_z = []
-        values_at_z.extend(w_z[:num_var_polys + num_wit_polys])
-        values_at_z.extend(s_z[num_sigma_polys:num_sigma_polys + num_const_polys])
-        values_at_z.extend(s_z[:num_sigma_polys])
-        values_at_z.extend(ext_vals(st2_z, [(0, 1)] + [(2 + 2 * i, 3 + 2 * i)
-                                                       for i in range(num_intermediates)]))
+        def ext_range(vals, start, count):
+            """The ext polys (start + 2i, start + 2i + 1), i < count, from
+            their components' values f0, f1: f0(z) + u·f1(z), where
+            u·(a + b·u) = 7b + a·u."""
+            end = start + 2 * count
+            f0 = (vals[0][start:end:2], vals[1][start:end:2])
+            f1 = (vals[0][start + 1:end:2], vals[1][start + 1:end:2])
+            return (gl.add(f0[0], gl.mul(f1[1], 7)), gl.add(f0[1], f1[0]))
+
+        def table(parts):
+            """Value groups -> one (k, 2) device table."""
+            return torch.stack([torch.cat([p[0] for p in parts]),
+                                torch.cat([p[1] for p in parts])], dim=1)
+
+        parts = [base_range(w_z, 0, num_var_polys + num_wit_polys),
+                 base_range(s_z, num_sigma_polys,
+                            num_sigma_polys + num_const_polys),
+                 base_range(s_z, 0, num_sigma_polys),
+                 ext_range(st2_z, 0, 1 + num_intermediates)]
+        b_off = a_off + 2 * num_lookup_subargs
         if lp.lookup_is_allowed:
-            values_at_z.extend(w_z[num_var_polys + num_wit_polys:
-                                   num_var_polys + num_wit_polys + num_mult_polys])
-            values_at_z.extend(ext_vals(st2_z, [(a_off + 2 * i, a_off + 2 * i + 1)
-                                                for i in range(num_lookup_subargs)]))
-            b_off = a_off + 2 * num_lookup_subargs
-            values_at_z.extend(ext_vals(st2_z, [(b_off, b_off + 1)]))
-            values_at_z.extend(s_z[num_sigma_polys + num_const_polys:
-                                   num_sigma_polys + num_const_polys + num_table_polys])
-        values_at_z.extend(ext_vals(q_z, [(2 * k, 2 * k + 1) for k in range(qd)]))
-        for v in values_at_z:
-            transcript.witness_field_elements([v[0], v[1]])
-
-        values_at_z_omega = ext_vals(st2_zw, [(0, 1)])
-        transcript.witness_field_elements([values_at_z_omega[0][0],
-                                           values_at_z_omega[0][1]])
-
-        # values at 0 of A_i and B: the constant coefficients
-        values_at_0 = []
+            parts += [base_range(w_z, num_var_polys + num_wit_polys,
+                                 num_var_polys + num_wit_polys + num_mult_polys),
+                      ext_range(st2_z, a_off, num_lookup_subargs),
+                      ext_range(st2_z, b_off, 1),
+                      base_range(s_z, num_sigma_polys + num_const_polys,
+                                 num_sigma_polys + num_const_polys
+                                 + num_table_polys)]
+        parts.append(ext_range(q_z, 0, qd))
+        values = [table(parts), table([ext_range(st2_zw, 0, 1)])]
         if lp.lookup_is_allowed:
-            row0 = gl.to_u64(st2_mono[0])
-            for i in range(num_lookup_subargs):
-                values_at_0.append((int(row0[a_off + 2 * i]),
-                                    int(row0[a_off + 2 * i + 1])))
-            values_at_0.append((int(row0[b_off]), int(row0[b_off + 1])))
-            for v in values_at_0:
-                transcript.witness_field_elements([v[0], v[1]])
+            # values at 0 of A_i and B: the constant coefficients
+            row0 = st2_mono[0]
+            values.append(torch.stack([row0[a_off:b_off + 2:2],
+                                       row0[a_off + 1:b_off + 2:2]], dim=1))
+        if use_dev_ts:
+            for t in values:
+                transcript.absorb_interleaved_dev(t[:, 0], t[:, 1])
+        else:
+            fetched = iter(gl.to_u64(torch.cat(values)).tolist())
+            values = [[tuple(next(fetched)) for _ in range(t.shape[0])]
+                      for t in values]
+            for t in values:
+                transcript.witness_field_elements([x for r in t for x in r])
+        values_at_z, values_at_z_omega = values[:2]
+        values_at_0 = values[2] if lp.lookup_is_allowed else []
         stage("evaluations")
 
         # -- stage 9: DEEP linear combination ----------------------------------
-        deep = _s2(tuple(transcript.get_multiple_challenges(2)))
+        deep = ext_challenge()
         pub_tuples = {}
         for (col, row, value) in public_inputs_with_values:
             pub_tuples.setdefault(pow(omega, row, P), []).append((col, value))
         total_ch = len(values_at_z) + 1 + len(values_at_0) + \
             sum(len(s) for s in pub_tuples.values())
-        deep_pows = [(1, 0)]
-        for _ in range(total_ch - 1):
-            deep_pows.append(ext2.s2_mul(deep_pows[-1], deep))
-        ch_iter = iter(deep_pows)
+        ch_iter = iter(pow_table(deep, total_ch))
 
         fsize = fri_lde * n
         x_fri = tables["x_fri"]
@@ -523,6 +595,24 @@ class DeviceProver:
         fri_result = do_fri_device(h.a, transcript, schedule, fri_lde,
                                    cap_size, tables["roots"])
         del h
+        fri_oracles = [fri_result.base_oracle] + fri_result.intermediate_oracles
+        if use_dev_ts:
+            # the one sync of the device transcript: its state and pending
+            # pieces, the final FRI layer, the values at z, z·ω and 0 and
+            # the oracle caps come to the host in one transfer; the host
+            # transcript goes on from there
+            capped = [witness_oracle, stage2_oracle, quotient_oracle] \
+                + fri_oracles
+            transcript, fetched = transcript.handoff_to_host(
+                list(fri_result.final_layer[:2]) + values
+                + [o.tree.layers[-1] for o in capped])
+            finish_fri(fri_result, fetched[0], fetched[1], transcript)
+            pairs = [[(int(a), int(b)) for a, b in v]
+                     for v in fetched[2:2 + len(values)]]
+            values_at_z, values_at_z_omega = pairs[:2]
+            values_at_0 = pairs[2] if lp.lookup_is_allowed else []
+            for o, cap in zip(capped, fetched[2 + len(values):]):
+                o.tree.set_cap_host(cap)
         stage("FRI")
 
         # -- stage 12: queries (no PoW: pow_bits == 0) -------------------------
@@ -539,7 +629,6 @@ class DeviceProver:
         rows = [o.query_many(flat_idx) for o in main]
         for o in main:
             o.tree.prefetch_proofs(flat_idx)
-        fri_oracles = [fri_result.base_oracle] + fri_result.intermediate_oracles
         fri_idx = [[] for _ in schedule]
         for (coset_idx, inner_idx) in picks:
             cur_domain, cur_inner = n, inner_idx

@@ -57,8 +57,8 @@ class DeviceOracle:
 
     def query_many(self, flat_indices) -> np.ndarray:
         """Leaf values of all queries at once -> (q, k) host u64."""
-        idx = torch.as_tensor(np.asarray(flat_indices, np.int64),
-                              device=self.flat_t.device)
+        idx = dops.upload(np.asarray(flat_indices, np.int64),
+                          self.flat_t.device)
         return gl.to_u64(self.flat_t[:, idx].T)
 
     def query(self, coset_idx: int, inner_idx: int, cached_rows,
@@ -70,14 +70,17 @@ class DeviceOracle:
 
 
 def eval_monomial_sets_at(sets) -> list:
-    """sets: list of (monomials (n, k), point) with ``point`` an ext scalar
-    (c0, c1) of host ints. Returns, per set, the k (c0, c1) host-int pairs
-    (Σ c_i·(z^i)_c0, Σ c_i·(z^i)_c1); one power table per distinct point."""
+    """sets: list of (monomials (n, k), point) with ``point`` an ext scalar:
+    a (c0, c1) pair of host ints, or a (2,) device tensor. Returns, per set,
+    the two (k,) component tensors (Σ c_i·(z^i)_c0, Σ c_i·(z^i)_c1) on the
+    device; one power table per distinct point."""
     tables = {}
     out = []
     for mono, point in sets:
-        key = (int(point[0]), int(point[1]))
+        dev_point = isinstance(point, torch.Tensor)
+        key = id(point) if dev_point else (int(point[0]), int(point[1]))
         if key not in tables:
-            tables[key] = dops.powers_of_ext(key, mono.shape[0], mono.device)
+            tables[key] = dops.powers_of_ext(
+                point if dev_point else key, mono.shape[0], mono.device)
         out.append(dops.eval_monomials_at_ext(mono, tables[key]))
     return out

@@ -19,7 +19,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-KERNELS = ("ntt_stage", "poseidon2", "ntt_small")
+KERNELS = ("ntt_stage", "poseidon2", "ntt_small", "sha256_witness",
+           "poseidon")
 
 _LIBS: dict = {}  # kernel handles: name -> ctypes.CDLL
 
@@ -45,6 +46,15 @@ _SIGNATURES = {
         # x, y, stage table, cross twiddle (None: no epilogue), log_n,
         # batch, inverse, cross-twiddle column shift, stream
         "ntt_small": [_P, _P, _P, _P, _I, _LL, _I, _I, _P],
+    },
+    "sha256_witness": {
+        "sha256_witness": [_P, _P, _P, _LL, _P],  # blocks, init, out, nb, stream
+    },
+    "poseidon": {
+        # state, elements, k, out state, constants table, stream
+        "poseidon_absorb": [_P, _P, _LL, _P, _P, _P],
+        "poseidon_permute": [_P, _P, _P, _P],  # state, out, table, stream
+        "poseidon_table_size": [],
     },
 }
 

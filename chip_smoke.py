@@ -8,19 +8,29 @@ at every template instance (R 128 / 256 x forward / inverse x twiddle mode
 `poseidon2_leaf_hashes` and `poseidon2_node_layer` at the trees' shapes,
 `ntt_small` at every template instance (log n 0 .. 12 x forward / forward
 with the cross twiddle / inverse) at two ragged batches and at the NTT
-path's two shapes with its real twiddle tables; every shape it times is held
-against the plain version first. Then it drives
-three paths, each with the launch counts set to 0 just before it and read
-just after:
+path's two shapes with its real twiddle tables, `sha256_witness` at 1, 3,
+129 (the flagship) and 1000 chained blocks, and the Poseidon sponge
+(`poseidon_absorb` at 0 .. 130 elements from several states, and
+`poseidon_permute`); every shape it times is held against the plain version
+first. Then it drives three paths, each with the launch counts set to 0 just
+before it and read just after:
 
 - the flagship: proves the 8 kB SHA-256 circuit (2^16 rows, LDE 8, cap 16,
   Poseidon transcript, Poseidon2 trees) through the port's entry points and
   requires the sha256 of `proof_to_json(proof)` to equal the reference
   digest in `boojum_tpu_torch/data/flagship_proof_digest.json` (made by
-  `scripts/torch_reference_digest.py` from the JAX package). It records the
-  kernel launches of one prove by shape, holds each shape bit-exactly
-  against its plain version, times it and prints, per kernel, the sum over
-  a prove of launches x time and of launches x (time - bound);
+  `scripts/torch_reference_digest.py` from the JAX package). The default
+  prove must take the device witness program (`sha256_witness` once a
+  prove, `materialize_witness_columns` never) and the device transcript
+  (`poseidon_sponge` more than once a prove). Five warm proves with the
+  device transcript alternate with five with the host transcript
+  (`device_transcript=False`), which must give the same digest; both sets
+  of times are printed, and one warm prove in each mode is
+  run under `torch.cuda.set_sync_debug_mode("warn")` to count its
+  synchronizing calls by source line. It records the kernel launches of one
+  prove by shape, holds each shape bit-exactly against its plain version,
+  times it and prints, per kernel, the sum over a prove of launches x time
+  and of launches x (time - bound);
 - the standalone NTT: runs `pallas_ntt.ntt_any` at (2^24, 8), whose output
   must equal the digest in `boojum_tpu_torch/data/ntt_2e24_digest.json`
   (made by `scripts/torch_reference_ntt_digest.py`) and the radix-256 route
@@ -63,6 +73,20 @@ IMAD_PER_FIELD_MUL = 4
 # 22 partial rounds x 4
 P2_MULS = 8 * 12 * 4 + 22 * 4
 P2_REPLACES = "boojum_tpu/hash/pallas_poseidon2.py:43"
+# the classic Poseidon of the transcript has the same s-box multiplies
+POSEIDON_MULS = P2_MULS
+K5_REPLACES = "boojum_tpu/gadgets/sha256.py:545"
+# warm flagship proves in each transcript mode, alternated
+WARM_ROUNDS = 5
+K6_REPLACES = "boojum_tpu/prover/device_transcript.py:87"
+# Dependency-chain model of the two sequential kernels (not a measured
+# bound): a SHA-256 round's critical path, e -> s1 -> tmp1 -> tmp1w -> te,
+# is about 8 dependent integer instructions; a Poseidon round's about 3
+# dependent field multiplies of the s-box and one 12-term MDS sum, taken as
+# 60 dependent instructions; about 4 cycles each on the SM clock.
+SHA_ROUND_DEP = 8
+POSEIDON_ROUND_DEP = 60
+DEP_CYCLES = 4
 
 
 def log(msg):
@@ -391,16 +415,150 @@ def check_ntt_small(rng):
     return max(errs), timings
 
 
+def sm_clock_hz():
+    """The SM's maximum clock from nvidia-smi, for the chain model."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def k5_inputs(rng, nb):
+    import torch
+    from boojum_tpu_torch.gadgets.sha256 import INITIAL_STATE
+    blocks = torch.as_tensor(rng.integers(0, 256, (nb, 64)),
+                             dtype=torch.int64).cuda()
+    return blocks, torch.tensor(INITIAL_STATE, dtype=torch.int64).cuda()
+
+
+def k5_bound(nb):
+    """Bytes of the values the witness reads: per block W (64), the schedule
+    sums lo / hi (2 x 48), 14 round rows (14 x 64), state_in (8) and fin
+    lo / hi (2 x 8), plus the input bytes and the initial state; the zero
+    padding of the (ROWS, nb, 64) layout is not counted."""
+    used = 64 + 2 * 48 + 14 * 64 + 8 + 2 * 8
+    return bound((nb * 64 + 8 + used * nb) * 8, 0)
+
+
+def time_k5(rng, nb, plain=False):
+    """K5 at nb chained blocks: bit-equal to its plain version, then timed;
+    the chain model beside the roofline bound."""
+    from boojum_tpu_torch.gadgets import sha256_witness as sw
+    blocks, init = k5_inputs(rng, nb)
+    err = require_equal(sw.compress_chain(blocks, init),
+                        sw.compress_chain_plain(blocks, init),
+                        "sha256_witness nb=%d" % nb)
+    res = dict(err=err, ms=cuda_ms(lambda: sw.compress_chain(blocks, init),
+                                   20))
+    if plain:
+        res["plain_ms"] = cuda_ms(
+            lambda: sw.compress_chain_plain(blocks, init), 1)
+    res["bound_ms"], res["bound_by"] = k5_bound(nb)
+    res["chain_ms"] = nb * 64 * SHA_ROUND_DEP * DEP_CYCLES / sm_clock_hz() * 1e3
+    log("sha256_witness nb=%d: bit-equal, %.4f ms kernel%s, roofline bound "
+        "%.5f ms (%s), chain model %.4f ms (%d rounds x %d dependent "
+        "instructions x %d cycles)" % (
+            nb, res["ms"], ", %.1f ms plain" % res["plain_ms"] if plain
+            else "", res["bound_ms"], res["bound_by"], res["chain_ms"],
+            nb * 64, SHA_ROUND_DEP, DEP_CYCLES))
+    return res
+
+
+def check_sha256_witness(rng):
+    """K5 bit-equal to its plain version at 1, 3, 129 (the flagship's
+    blocks) and 1000 chained blocks; timed at 129."""
+    errs, timing = [], None
+    for nb in (1, 3, 129, 1000):
+        if nb == 129:
+            timing = time_k5(rng, nb, plain=True)
+            errs.append(timing["err"])
+            continue
+        from boojum_tpu_torch.gadgets import sha256_witness as sw
+        blocks, init = k5_inputs(rng, nb)
+        errs.append(require_equal(sw.compress_chain(blocks, init),
+                                  sw.compress_chain_plain(blocks, init),
+                                  "sha256_witness nb=%d" % nb))
+    log("sha256_witness: bit-equal at nb = 1, 3, 129, 1000")
+    return max(errs), timing
+
+
+def k6_bound(shape):
+    nblocks = shape[1] if shape[0] == "absorb" else 1
+    k = max(nblocks * 8 - 1, 0) if shape[0] == "absorb" else 0
+    b = bound((k + 2 * 12) * 8, nblocks * POSEIDON_MULS)
+    return b
+
+
+def time_k6(rng, shape, plain=False):
+    """A K6 entry at one shape (("absorb", rate blocks) or ("permute",)):
+    bit-equal to its plain version, then timed."""
+    from boojum_tpu_torch.hash import poseidon
+    st = rand_field(rng, (12,))
+    if shape[0] == "absorb":
+        el = rand_field(rng, (shape[1] * 8 - 1,))
+        fn = lambda: poseidon.sponge_absorb(st, el)  # noqa: E731
+        plain_fn = lambda: poseidon.sponge_absorb_plain(st, el)  # noqa: E731
+    else:
+        fn = lambda: poseidon.sponge_permute(st)  # noqa: E731
+        plain_fn = lambda: poseidon.sponge_permute_plain(st)  # noqa: E731
+    err = require_equal(fn(), plain_fn(), "poseidon sponge %s" % (shape,))
+    res = dict(err=err, ms=cuda_ms(fn, 20))
+    if plain:
+        res["plain_ms"] = cuda_ms(plain_fn, 1)
+    res["bound_ms"], res["bound_by"] = k6_bound(shape)
+    nperm = shape[1] if shape[0] == "absorb" else 1
+    res["chain_ms"] = nperm * 30 * POSEIDON_ROUND_DEP * DEP_CYCLES \
+        / sm_clock_hz() * 1e3
+    log("poseidon_sponge %s: bit-equal, %.4f ms kernel%s, roofline bound "
+        "%.6f ms (%s), chain model %.4f ms" % (
+            shape, res["ms"], ", %.2f ms plain" % res["plain_ms"] if plain
+            else "", res["bound_ms"], res["bound_by"], res["chain_ms"]))
+    return res
+
+
+def check_poseidon_sponge(rng):
+    """K6: `poseidon_absorb` at every length 0 .. 130 (the lengths whose
+    pad fills one more block among them) from the zero state and three
+    random states, each launch against the batched plain version, and
+    `poseidon_permute`, timed. The `kernels` row is timed later, at the
+    flagship prove's largest absorb."""
+    import torch
+    from boojum_tpu_torch.hash import poseidon
+
+    states = [torch.zeros(12, dtype=torch.int64, device="cuda")] + \
+        [rand_field(rng, (12,)) for _ in range(3)]
+    lanes, elems = [], []
+    for st in states:
+        for k in range(131):
+            lanes.append(st)
+            elems.append(rand_field(rng, (k,)))
+    got = torch.stack([poseidon.sponge_absorb(st, el)
+                       for st, el in zip(lanes, elems)], dim=1)
+    want = poseidon.sponge_absorb_plain_many(torch.stack(lanes, dim=1), elems)
+    errs = [require_equal(got, want, "poseidon_absorb, lengths 0..130")]
+    st = torch.stack(states, dim=1)
+    got = torch.stack([poseidon.sponge_permute(st[:, i])
+                       for i in range(st.shape[1])], dim=1)
+    errs.append(require_equal(got, poseidon.permutation_stacked(st),
+                              "poseidon_permute"))
+    log("poseidon_sponge: poseidon_absorb bit-equal at lengths 0..130 from "
+        "4 states (%d launches), poseidon_permute at 4 states" % len(lanes))
+    timing = time_k6(rng, ("permute",))
+    return max(errs + [timing["err"]])
+
+
 # ---------------------------------------------------------------------------
 # paths
 # ---------------------------------------------------------------------------
 
 
 def reset_counts():
+    from boojum_tpu_torch.gadgets import sha256_witness as sw
     from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    from boojum_tpu_torch.hash import poseidon
     from boojum_tpu_torch.ntt import mxu_ntt
     from boojum_tpu_torch.ntt import pallas_ntt as pn
-    for mod in (mxu_ntt, pp, pn):
+    for mod in (mxu_ntt, pp, pn, sw, poseidon):
         mod.LAUNCHES = 0
         mod.PLAIN_CUDA_CALLS = 0
         if hasattr(mod, "SHAPES"):
@@ -412,15 +570,19 @@ def reset_counts():
 def read_counts():
     """Launches of every kernel entry, plain calls on CUDA tensors, and torch
     cross-twiddle multiplies on CUDA tensors."""
+    from boojum_tpu_torch.gadgets import sha256_witness as sw
     from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    from boojum_tpu_torch.hash import poseidon
     from boojum_tpu_torch.ntt import mxu_ntt
     from boojum_tpu_torch.ntt import pallas_ntt as pn
     return dict(ntt_stage=mxu_ntt.LAUNCHES, poseidon2_permute=pp.LAUNCHES,
                 poseidon2_leaf_hashes=pp.LEAF_LAUNCHES,
                 poseidon2_node_layer=pp.NODE_LAUNCHES,
-                ntt_small=pn.LAUNCHES,
+                ntt_small=pn.LAUNCHES, sha256_witness=sw.LAUNCHES,
+                poseidon_sponge=poseidon.LAUNCHES,
                 plain_on_cuda=mxu_ntt.PLAIN_CUDA_CALLS + pp.PLAIN_CUDA_CALLS
-                + pn.PLAIN_CUDA_CALLS,
+                + pn.PLAIN_CUDA_CALLS + sw.PLAIN_CUDA_CALLS
+                + poseidon.PLAIN_CUDA_CALLS,
                 torch_twiddle_muls=pn.TORCH_TWIDDLE_MULS)
 
 
@@ -501,13 +663,27 @@ def ntt_path(k4):
     return counts
 
 
-def per_prove_costs(rng, k1_shapes, p2_shapes):
+def per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks, k6_shapes):
     """Holds every kernel shape one prove launched against its plain version,
     times it and sums, per kernel, launches x time and launches x (time -
     bound) over the prove. Returns the sums and each kernel's largest
     error."""
     totals = collections.defaultdict(lambda: [0, 0.0, 0.0])
     errs = collections.defaultdict(float)
+
+    def add(name, n, t):
+        errs[name] = max(errs[name], t["err"])
+        tot = totals[name]
+        tot[0] += n
+        tot[1] += n * t["ms"]
+        tot[2] += n * (t["ms"] - t["bound_ms"])
+
+    for nb, n in sorted(k5_blocks.items()):
+        log("per prove: sha256_witness nb=%d x %d" % (nb, n))
+        add("sha256_witness", n, time_k5(rng, nb))
+    for shape, n in sorted(k6_shapes.items()):
+        log("per prove: poseidon_sponge %s x %d" % (shape, n))
+        add("poseidon_sponge", n, time_k6(rng, shape))
     for (r, m, inverse, twmode, width), n in sorted(k1_shapes.items()):
         t = time_ntt_stage(rng, r, m, inverse, twmode, width or 256)
         errs["ntt_stage"] = max(errs["ntt_stage"], t["err"])
@@ -543,18 +719,65 @@ def per_prove_costs(rng, k1_shapes, p2_shapes):
     return out, errs
 
 
+def count_syncs(fn):
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn") and return its
+    synchronizing calls, as a Counter of the innermost line of the port (or
+    of this script) that made each, and fn's result."""
+    import traceback
+    import warnings
+    import torch
+
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = "?"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if "boojum_tpu_torch" in fr.filename or \
+                    fr.filename.endswith("chip_smoke.py"):
+                site = "%s:%d" % (os.path.relpath(fr.filename, ROOT),
+                                  fr.lineno)
+                break
+        sites[site] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites, out
+
+
 def flagship():
-    """Synthesis, setup, one cold and three warm proves on the card. Returns
+    """Synthesis, setup, one cold prove and five warm proves in each
+    transcript mode on the card (the default prove: device witness program
+    and device transcript). Returns
     the launch counts of the path and one prove's launches by shape."""
     import numpy as np
     import torch
     from boojum_tpu_torch.cs.setup import create_base_setup
     from boojum_tpu_torch.gadgets.sha256 import build_sha256_circuit
     from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    from boojum_tpu_torch.hash import poseidon
     from boojum_tpu_torch.ntt import mxu_ntt
     from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                          create_device_setup)
+    from boojum_tpu_torch.prover import device_prover
     from boojum_tpu_torch.prover.proof import proof_to_json
+
+    # count the host witness path's calls: the default prove must not take it
+    host_witness = [0]
+    materialize = device_prover.materialize_witness_columns
+
+    def counted_materialize(*args, **kwargs):
+        host_witness[0] += 1
+        return materialize(*args, **kwargs)
+
+    device_prover.materialize_witness_columns = counted_materialize
 
     with open(os.path.join(ROOT, "boojum_tpu_torch", "data",
                            "flagship_proof_digest.json")) as f:
@@ -580,46 +803,110 @@ def flagship():
     log("flagship create_base_setup %.2f s, create_device_setup %.2f s"
         % (t_base, t_setup))
 
-    def prove():
+    def prove(**kw):
         t = time.time()
-        proof = prover.prove(ref["transcript"], ref["hasher"])
+        proof = prover.prove(ref["transcript"], ref["hasher"], **kw)
         torch.cuda.synchronize()
         return proof, time.time() - t
 
+    def digest_of(proof):
+        return hashlib.sha256(proof_to_json(proof).encode()).hexdigest()
+
     torch.cuda.reset_peak_memory_stats()
     proof, t_cold = prove()
-    warm = []
-    for _ in range(3):
+    # warm proves of the two transcript modes, alternated in one process
+    # (the first of each pair flips every round): the default (device
+    # transcript) and device_transcript=False (host transcript)
+    warm = {"device": [], "host": []}
+    last = {}  # the launches of the last default prove, by kernel and shape
+
+    def warm_device():
         before = read_counts()
-        k1_before, p2_before = mxu_ntt.SHAPES.copy(), pp.SHAPES.copy()
-        proof, t = prove()
-        warm.append(t)
+        shapes = (mxu_ntt.SHAPES.copy(), pp.SHAPES.copy(),
+                  poseidon.SHAPES.copy())
+        last["proof"], t = prove()
+        warm["device"].append(t)
+        after = read_counts()
+        last["per_prove"] = {k: after[k] - before[k] for k in after}
+        last["shapes"] = [c - b for c, b in zip(
+            (mxu_ntt.SHAPES, pp.SHAPES, poseidon.SHAPES), shapes)]
+
+    def warm_host():
+        host_proof, t = prove(device_transcript=False)
+        warm["host"].append(t)
+        if digest_of(host_proof) != ref["proof_json_sha256"]:
+            raise AssertionError("the host-transcript proof differs from "
+                                 "the reference")
+
+    for i in range(WARM_ROUNDS):
+        for fn in ((warm_device, warm_host) if i % 2 == 0
+                   else (warm_host, warm_device)):
+            fn()
+    proof, per_prove = last["proof"], last["per_prove"]
+    k1_shapes, p2_shapes, k6_shapes = last["shapes"]
     counts = read_counts()
-    per_prove = {k: counts[k] - before[k] for k in counts}
-    k1_shapes = mxu_ntt.SHAPES - k1_before
-    p2_shapes = pp.SHAPES - p2_before
+    # message blocks of the padded input (a 1 bit and the 64-bit length)
+    k5_blocks = collections.Counter({(ref["input_len"] + 9 + 63) // 64:
+                                     per_prove["sha256_witness"]})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log("flagship prove cold %.3f s, warm %s s, peak device memory %.2f GB"
-        % (t_cold, ", ".join("%.3f" % w for w in warm), peak_gb))
-    log("flagship launches (setup + 4 proves): %s; per prove: %s"
-        % (json.dumps(counts), json.dumps(per_prove)))
-    for name in ("ntt_stage", "poseidon2_leaf_hashes", "poseidon2_node_layer"):
+    log("flagship prove cold %.3f s, peak device memory %.2f GB"
+        % (t_cold, peak_gb))
+    for mode, ts in warm.items():
+        log("flagship warm proves, %s transcript (alternated): %s s, mean "
+            "%.4f s" % (mode, ", ".join("%.4f" % t for t in ts),
+                        sum(ts) / len(ts)))
+    log("flagship launches (setup + %d proves): %s; per default prove: %s"
+        % (1 + 2 * WARM_ROUNDS, json.dumps(counts), json.dumps(per_prove)))
+    for name in ("ntt_stage", "poseidon2_leaf_hashes", "poseidon2_node_layer",
+                 "sha256_witness", "poseidon_sponge"):
         if counts[name] <= 0:
             raise AssertionError("%s never launched on the main path" % name)
     if counts["plain_on_cuda"]:
         raise AssertionError("a plain version ran on a CUDA tensor")
+    if per_prove["sha256_witness"] != 1 or per_prove["poseidon_sponge"] < 2:
+        raise AssertionError("the default prove should launch sha256_witness "
+                             "once and poseidon_sponge more than once, got %d "
+                             "and %d" % (per_prove["sha256_witness"],
+                                         per_prove["poseidon_sponge"]))
+    if host_witness[0]:
+        raise AssertionError("the default prove called "
+                             "materialize_witness_columns %d times"
+                             % host_witness[0])
+    log("flagship default prove: device witness program (sha256_witness %d "
+        "launch a prove, materialize_witness_columns never called) and "
+        "device transcript (poseidon_sponge %d launches a prove: %s)"
+        % (per_prove["sha256_witness"], per_prove["poseidon_sponge"],
+           json.dumps({"%s" % (k,): v for k, v in sorted(k6_shapes.items())})))
 
-    text = proof_to_json(proof)
-    digest = hashlib.sha256(text.encode()).hexdigest()
-    log("flagship proof_to_json: %d chars, sha256 %s (reference %s)"
-        % (len(text), digest, ref["proof_json_sha256"]))
+    digest = digest_of(proof)
+    log("flagship proof_to_json: sha256 %s (reference %s)"
+        % (digest, ref["proof_json_sha256"]))
     if digest != ref["proof_json_sha256"]:
         raise AssertionError("flagship proof differs from the reference")
 
     prover.prove(ref["transcript"], ref["hasher"], verbose=True)
     log("flagship stage split (synced, one extra prove): " + json.dumps(
         {k: round(v, 4) for k, v in prover.last_stage_times.items()}))
-    return counts, k1_shapes, p2_shapes
+
+    # the host transcript (the reference's device_transcript=False) must
+    # give the same proof
+    host_proof, t_host = prove(device_transcript=False, verbose=True)
+    host_digest = digest_of(host_proof)
+    log("flagship prove with device_transcript=False (synced): %.3f s, "
+        "sha256 %s, stage split %s" % (t_host, host_digest, json.dumps(
+            {k: round(v, 4) for k, v in prover.last_stage_times.items()})))
+    if host_digest != ref["proof_json_sha256"]:
+        raise AssertionError("the host-transcript proof differs from the "
+                             "reference")
+    for mode, kw in (("device transcript", {}),
+                     ("host transcript", dict(device_transcript=False))):
+        sites, (_, t) = count_syncs(lambda: prove(**kw))
+        log("flagship synchronizing calls, one warm prove with the %s: %d "
+            "(%.3f s); by source line: %s" % (
+                mode, sum(sites.values()), t,
+                json.dumps(dict(sites.most_common()))))
+    device_prover.materialize_witness_columns = materialize
+    return counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes
 
 
 def permute_path(rng):
@@ -667,12 +954,18 @@ def main():
            100 * k1["bound_ms"] / k1["ms"]))
     p2 = check_poseidon2(rng)
     k4_err, k4 = check_ntt_small(rng)
+    k5_err, k5 = check_sha256_witness(rng)
+    k6_err = check_poseidon_sponge(rng)
     if kernels_only:
         log("chip_smoke: --kernels-only, stopping after the kernel checks")
         return 0
 
-    counts, k1_shapes, p2_shapes = flagship()
-    costs, prove_errs = per_prove_costs(rng, k1_shapes, p2_shapes)
+    counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes = flagship()
+    costs, prove_errs = per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks,
+                                        k6_shapes)
+    # K6's row: the prove's largest absorb (the values at z)
+    k6 = time_k6(rng, max(s for s in k6_shapes if s[0] == "absorb"),
+                 plain=True)
     ntt_counts = ntt_path(k4)
     perm_counts = permute_path(rng)
 
@@ -702,6 +995,12 @@ def main():
             max(p2["poseidon2_node_layer"][0],
                 prove_errs["poseidon2_node_layer"]),
             p2["poseidon2_node_layer"][1]),
+        row("sha256_witness", "boojum_tpu_torch/csrc/sha256_witness.cu",
+            K5_REPLACES, counts["sha256_witness"],
+            max(k5_err, prove_errs["sha256_witness"]), k5),
+        row("poseidon_sponge", "boojum_tpu_torch/csrc/poseidon.cu",
+            K6_REPLACES, counts["poseidon_sponge"],
+            max(k6_err, k6["err"], prove_errs["poseidon_sponge"]), k6),
     ]
     log("summary: " + json.dumps(dict(per_prove=costs, sass={
         k: {f: v[f] for f in ("total", "integer", "imad", "integer_per_pass",

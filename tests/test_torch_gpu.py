@@ -3,7 +3,10 @@ entry point, on the card against the same calls on the CPU, and each entry
 of the redesigned kernels bit-equal to its plain version on the card
 (`ntt_stage` at every template instance and a ragged width; `ntt_small` at
 every template instance, with and without its cross twiddle; the three
-Poseidon2 entries at the trees' shapes). It skips without a GPU. This file
+Poseidon2 entries at the trees' shapes; the SHA-256 witness chain at 1 and 3
+blocks; the Poseidon sponge's absorb and permute), and the device witness
+program of a small SHA-256 circuit on the card against the CPU. It skips
+without a GPU. This file
 imports no JAX, so on the GPU machine (which has none) it runs without the
 suite's conftest:
 
@@ -20,10 +23,14 @@ from boojum_tpu_torch.cs.gates import (ConstantsAllocatorGate, FmaGate,
                                        NopGate, PublicInputGate, ReductionGate)
 from boojum_tpu_torch.cs.setup import create_base_setup
 from boojum_tpu_torch.field import goldilocks as gl
+from boojum_tpu_torch.gadgets import sha256_witness as sw
+from boojum_tpu_torch.gadgets.sha256 import INITIAL_STATE, build_sha256_circuit
 from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+from boojum_tpu_torch.hash import poseidon
 from boojum_tpu_torch.ntt import mxu_ntt, ntt, pallas_ntt
 from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                      create_device_setup)
+from boojum_tpu_torch.prover.device_witness import DeviceWitnessProgram
 from boojum_tpu_torch.prover.proof import proof_to_json
 
 P = gl.ORDER
@@ -151,3 +158,32 @@ def test_poseidon2_leaf_hashes_equal_plain(cuda, k, m):
 def test_poseidon2_node_layer_equals_plain(cuda, m):
     cur = _rand(cuda, m, (4, m))
     assert torch.equal(pp.node_layer(cur), pp.node_layer_plain(cur))
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+def test_sha256_witness_equals_plain(cuda, nb):
+    blocks = torch.as_tensor(np.random.default_rng(nb).integers(
+        0, 256, (nb, 64)), dtype=torch.int64).to(cuda)
+    init = torch.tensor(INITIAL_STATE, dtype=torch.int64).to(cuda)
+    assert torch.equal(sw.compress_chain(blocks, init),
+                       sw.compress_chain_plain(blocks, init))
+
+
+@pytest.mark.parametrize("k", [0, 1, 7, 8, 9, 17])
+def test_poseidon_sponge_equals_plain(cuda, k):
+    st = _rand(cuda, 100 + k, (12,))
+    el = _rand(cuda, k, (k,))
+    assert torch.equal(poseidon.sponge_absorb(st, el),
+                       poseidon.sponge_absorb_plain(st, el))
+    assert torch.equal(poseidon.sponge_permute(st),
+                       poseidon.sponge_permute_plain(st))
+
+
+def test_device_witness_on_gpu_equals_cpu(cuda):
+    data = bytes(np.random.default_rng(3).integers(0, 256, 40, dtype=np.uint8))
+    cs, _ = build_sha256_circuit(data)
+    cs.pad_and_shrink()
+    n = cs.final_trace_len
+    got = DeviceWitnessProgram(cs, n, cuda)()
+    want = DeviceWitnessProgram(cs, n, "cpu")()
+    assert torch.equal(got.cpu(), want)
