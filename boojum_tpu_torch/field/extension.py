@@ -5,8 +5,11 @@ An element array is a pair ``(c0, c1)`` of int64 field tensors of one shape
 (`goldilocks`), meaning c0 + c1·u. Scalars are ``(int, int)`` tuples and go
 through the exact Python-int ``s2_*`` helpers, copied from the reference; the
 array ops that take a scalar (`full`, `scale`, `base_scale`, `powers`) also
-take a device scalar, a (2,) int64 tensor [c0, c1] (the device transcript's
-challenges), and then never read it on the host.
+take a device scalar, and then never read it on the host: a `PreparedExt`
+(the device transcript's challenges and power tables, split once by
+`prepare`: each component and c0 + c1 as `goldilocks.Prepared`, so a scale
+by it costs the ops of a scale by host ints), or a (2,) int64 tensor
+[c0, c1].
 """
 
 from __future__ import annotations
@@ -27,6 +30,37 @@ def zeros(shape, device="cpu"):
 def ones(shape, device="cpu"):
     return (torch.ones(tuple(shape), dtype=torch.int64, device=device),
             torch.zeros(tuple(shape), dtype=torch.int64, device=device))
+
+
+class PreparedExt:
+    """A device ext scalar split once: ``c0``, ``c1`` and ``csum`` = c0 + c1
+    as `goldilocks.Prepared` scalars. ``c[0]``, ``c[1]`` are the components,
+    as for a host pair."""
+
+    __slots__ = ("c0", "c1", "csum")
+
+    def __init__(self, c0, c1, csum):
+        self.c0, self.c1, self.csum = c0, c1, csum
+
+    def __getitem__(self, i):
+        return (self.c0, self.c1)[i]
+
+    @property
+    def device(self):
+        return self.c0.value.device
+
+    def pair(self) -> torch.Tensor:
+        """The (2,) tensor [c0, c1]."""
+        return torch.stack([self.c0.value, self.c1.value])
+
+
+def prepare(pairs: torch.Tensor) -> list:
+    """(..., 2) canonical ext values on the device -> one `PreparedExt` per
+    row, in a fixed handful of ops for the whole tensor."""
+    v = pairs.reshape(-1, 2)
+    csum = gl.add(v[:, 0], v[:, 1])
+    flat = gl.prepare(torch.cat([v, csum[:, None]], dim=1))
+    return [PreparedExt(*flat[3 * i:3 * i + 3]) for i in range(v.shape[0])]
 
 
 def full(shape, c, device="cpu"):
@@ -63,12 +97,17 @@ def mul_by_base(a, b):
 
 
 def scale(a, c):
-    """Ext array times the ext scalar ``c`` (host pair or device (2,))."""
+    """Ext array times the ext scalar ``c`` (host pair, `PreparedExt` or
+    device (2,))."""
     v0 = gl.mul(a[0], c[0])
     v1 = gl.mul(a[1], c[1])
     c0 = gl.add(v0, gl.mul(v1, NON_RESIDUE))
-    csum = gl.add(c[0], c[1]) if isinstance(c, torch.Tensor) \
-        else (c[0] + c[1]) % ORDER
+    if isinstance(c, PreparedExt):
+        csum = c.csum
+    elif isinstance(c, torch.Tensor):
+        csum = gl.add(c[0], c[1])
+    else:
+        csum = (c[0] + c[1]) % ORDER
     t = gl.mul(gl.add(a[0], a[1]), csum)
     return (c0, gl.sub(gl.sub(t, v0), v1))
 
@@ -110,21 +149,32 @@ def exclusive_prefix_mul(a):
 
 def powers(c, n: int, device="cpu"):
     """[c^0, ..., c^(n-1)] of the ext scalar ``c`` as an (n,) ext array, by
-    doubling: the first ``have`` powers times c^have give the next ones
-    (``have`` is a power of two until the last step, so a device scalar's
-    c^have is the square of the previous one)."""
+    doubling: the first powers times c^have give the next ones. For a host
+    pair, c^have comes from the host. For a device scalar the table carries
+    it: with t[0 .. have] filled, t[1 .. have] · t[have] fill
+    t[have + 1 .. 2·have], whose last entry is the next step; one ext
+    multiply a doubling, broadcast against the step's one-element slices."""
     out = ones((n,), device)
-    have, step = 1, c
+    if isinstance(c, (PreparedExt, torch.Tensor)):
+        if n > 1:  # in place: filling the table
+            out[0][1:2].copy_(gl.full((1,), c[0]))
+            out[1][1:2].copy_(gl.full((1,), c[1]))
+        have = 1  # t[0 .. have] hold c^0 .. c^have
+        while have < n - 1:
+            take = min(have, n - 1 - have)
+            nxt = mul((out[0][1:take + 1], out[1][1:take + 1]),
+                      (out[0][have:have + 1], out[1][have:have + 1]))
+            out[0][have + 1:have + take + 1] = nxt[0]
+            out[1][have + 1:have + take + 1] = nxt[1]
+            have += take
+        return out
+    have = 1
     while have < n:
         take = min(have, n - have)
-        if not isinstance(c, torch.Tensor):
-            step = s2_pow(c, have)
-        nxt = scale((out[0][:take], out[1][:take]), step)
+        nxt = scale((out[0][:take], out[1][:take]), s2_pow(c, have))
         out[0][have:have + take] = nxt[0]  # in place: filling the table
         out[1][have:have + take] = nxt[1]
         have += take
-        if isinstance(c, torch.Tensor) and have < n:
-            step = torch.stack(mul((step[0], step[1]), (step[0], step[1])))
     return out
 
 

@@ -17,6 +17,11 @@ Every public op returns canonical values (< p) for canonical inputs. Python
 ints >= 2^63 (p - 1 and most constants) go through `i64` before they meet a
 tensor. The scalar `s_*` helpers and `domain_generator` are exact Python-int
 twins, copied from the reference.
+
+A scalar operand of `mul`, `add`, `sub` and `full` may be a Python int (split
+on the host), a tensor, or a `Prepared` scalar: a 0-dim device value that
+`prepare` split once into the 16-bit limbs `mul` needs, so a multiply by a
+device challenge costs the same ops as a multiply by a host int.
 """
 
 from __future__ import annotations
@@ -61,9 +66,32 @@ def to_u64(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
 
 
+class Prepared:
+    """A canonical field scalar on the device, split once: ``value`` (0-dim)
+    and ``limbs``, the four 16-bit limbs (0-dim) of its low and high 32-bit
+    halves, lowest first. `mul` takes the limbs as they are."""
+
+    __slots__ = ("value", "limbs")
+
+    def __init__(self, value: torch.Tensor, limbs):
+        self.value = value
+        self.limbs = tuple(limbs)
+
+
+def prepare(values: torch.Tensor) -> list:
+    """Canonical values (any shape, taken flat) -> one `Prepared` each, in
+    a fixed handful of ops for the whole tensor."""
+    v = values.reshape(-1)
+    limbs = torch.stack([v, v >> 16, v >> 32, v >> 48], dim=1) & 0xFFFF
+    vals, flat = v.unbind(0), limbs.reshape(-1).unbind(0)
+    return [Prepared(vals[i], flat[4 * i:4 * i + 4]) for i in range(len(vals))]
+
+
 def full(shape, value, device="cpu") -> torch.Tensor:
-    """``value`` (a Python int, or a canonical 0-dim tensor on ``device``)
-    broadcast to ``shape``."""
+    """``value`` (a Python int, a canonical 0-dim tensor on ``device`` or a
+    `Prepared` scalar) broadcast to ``shape``."""
+    if isinstance(value, Prepared):
+        value = value.value
     if isinstance(value, torch.Tensor):
         return value.expand(tuple(shape)).clone()
     return torch.full(tuple(shape), i64(value % ORDER), dtype=torch.int64,
@@ -71,7 +99,10 @@ def full(shape, value, device="cpu") -> torch.Tensor:
 
 
 def _pattern(b):
-    """Second operand of add/sub: a tensor, or a Python int as its pattern."""
+    """Second operand of add/sub: a tensor, a `Prepared` scalar's value, or
+    a Python int as its pattern."""
+    if isinstance(b, Prepared):
+        return b.value
     return b if isinstance(b, torch.Tensor) else i64(int(b) % ORDER)
 
 
@@ -90,23 +121,37 @@ def _ult(a, b):
     return (a ^ _SIGN) < (b ^ _SIGN)
 
 
-def _mul32(a, b):
-    """u64 bit pattern of a * b for 0 <= a, b < 2^32. Each multiply is
-    32x16 bits (< 2^48); only the shift and the add wrap."""
-    return a * (b & 0xFFFF) + ((a * (b >> 16)) << 16)
+def _mul32(a, b_lo, b_hi):
+    """u64 bit pattern of a * b for 0 <= a < 2^32 and b = b_lo + b_hi·2^16
+    (16-bit limbs). Each multiply is 32x16 bits (< 2^48); only the shift and
+    the add wrap."""
+    return a * b_lo + ((a * b_hi) << 16)
+
+
+def _limbs(b):
+    """The 16-bit limbs of ``b``'s low and high 32-bit halves, lowest first:
+    Python ints for an int, as prepared for a `Prepared` scalar, else split
+    once on the device."""
+    if isinstance(b, Prepared):
+        return b.limbs
+    if not isinstance(b, torch.Tensor):
+        return (b & 0xFFFF, (b >> 16) & 0xFFFF, (b >> 32) & 0xFFFF, b >> 48)
+    b0 = b & _M32
+    b1 = _lsr32(b)
+    return (b0 & 0xFFFF, b0 >> 16, b1 & 0xFFFF, b1 >> 16)
 
 
 def _mul_wide(a, b):
     """64x64 -> (hi, lo) u64 patterns (utils/npgl._mul_wide). ``a`` is a
-    tensor; ``b`` a tensor or a non-negative Python int."""
+    tensor; ``b`` a tensor, a `Prepared` scalar or a non-negative Python
+    int."""
     a0 = a & _M32
     a1 = _lsr32(a)
-    b0 = b & _M32
-    b1 = _lsr32(b)
-    ll = _mul32(a0, b0)
-    lh = _mul32(a0, b1)
-    hl = _mul32(a1, b0)
-    hh = _mul32(a1, b1)
+    b0l, b0h, b1l, b1h = _limbs(b)
+    ll = _mul32(a0, b0l, b0h)
+    lh = _mul32(a0, b1l, b1h)
+    hl = _mul32(a1, b0l, b0h)
+    hh = _mul32(a1, b1l, b1h)
     mid = lh + _lsr32(ll)
     mid2 = mid + hl
     carry = _ult(mid2, hl).to(torch.int64)
@@ -159,8 +204,9 @@ def double(a):
 
 
 def mul(a, b):
-    """a * b; ``b`` may also be a Python int (split on the host, no upload)."""
-    if not isinstance(b, torch.Tensor):
+    """a * b; ``b`` may also be a Python int (split on the host, no upload)
+    or a `Prepared` scalar (split once, when it was prepared)."""
+    if not isinstance(b, (torch.Tensor, Prepared)):
         b = int(b) % ORDER
     hi, lo = _mul_wide(a, b)
     return _reduce128(hi, lo)

@@ -142,15 +142,15 @@ def sponge_permute_plain(state: torch.Tensor) -> torch.Tensor:
     return permutation_stacked(state[:, None])[:, 0]
 
 
-_TABLES = {}  # device -> the kernel's constants table on it
+_TABLES = {}  # device -> the kernel's round constants on it
 
 
 def _table(device) -> torch.Tensor:
+    """The round constants, round-major, uploaded once per device (the MDS
+    exponents are compile-time constants of the kernel)."""
     key = str(device)
     if key not in _TABLES:
-        host = np.concatenate([np.asarray(_RC, np.uint64),
-                               np.asarray(_EXPS, np.uint64)])
-        _TABLES[key] = gl.from_u64(host, device)
+        _TABLES[key] = gl.from_u64(np.asarray(_RC, np.uint64), device)
     return _TABLES[key]
 
 

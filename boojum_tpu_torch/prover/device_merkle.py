@@ -6,7 +6,9 @@ and FRI folding (src/cs/implementations/fri/mod.rs:49,362). The leaf hashes
 of a tree are one `pallas_poseidon2.leaf_hashes` call and each node layer one
 `pallas_poseidon2.node_layer` call (on the GPU one launch each of the Hopper
 `poseidon2_leaf_hashes` and `poseidon2_node_layer` kernels); the layers stay
-on the device, and only caps and queried paths cross to the host.
+on the device, and only caps and queried paths cross to the host: the
+query phase's gathers all ride one `FetchCollector` flush, one copy to the
+host and one wait.
 """
 
 from __future__ import annotations
@@ -22,6 +24,65 @@ from ..utils import npgl
 from .device import upload
 from .fri import FriResult, interpolate_final_host
 from .proof import OracleQuery
+
+
+# flushes of a FetchCollector that had work: each is one device-to-host copy
+# and one wait for the device
+FETCHES = 0
+
+
+class FetchCollector:
+    """Batches device gathers and their transfers to the host into ONE copy
+    (the reference's FetchCollector, boojum_tpu/prover/device_merkle.py:654).
+    Entries registered with ``add`` (tensors already computed) or
+    ``add_gather`` (``fn(*args)`` run at the flush) are flattened into one
+    int64 tensor on the device, copied once into pinned host memory, and
+    the host waits once; each callback then gets the host u64 copy of its
+    entry (one array, or a list of arrays for a sequence of tensors)."""
+
+    def __init__(self):
+        self._items = []
+
+    def add(self, tensors, callback):
+        """Fetch already-computed device tensors (one, or a sequence)."""
+        one = isinstance(tensors, torch.Tensor)
+        self._items.append((None, (tensors,) if one else tuple(tensors),
+                            callback, one))
+
+    def add_gather(self, fn, args, callback):
+        """Deferred gather: ``fn(*args)`` -> one tensor, run at the flush."""
+        self._items.append((fn, tuple(args), callback, True))
+
+    def flush(self):
+        global FETCHES
+        if not self._items:
+            return
+        items, self._items = self._items, []
+        outs = [[fn(*args)] if fn is not None else list(args)
+                for (fn, args, _, _) in items]
+        flat = torch.cat([t.reshape(-1) for ts in outs for t in ts])
+        if flat.is_cuda:
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            torch.cuda.current_stream(flat.device).synchronize()
+        else:
+            host = flat
+        arr = host.numpy().view(np.uint64)
+        FETCHES += 1
+        pos = 0
+        for (_, _, callback, one), ts in zip(items, outs):
+            got = []
+            for t in ts:
+                got.append(arr[pos:pos + t.numel()].reshape(tuple(t.shape)))
+                pos += t.numel()
+            callback(got[0] if one else got)
+
+
+def _flush_alone(collector):
+    """The collector to register with, and whether to flush it at once
+    (no caller's collector: a call fetches by itself, as before)."""
+    return (collector, False) if collector is not None \
+        else (FetchCollector(), True)
 
 
 def build_device_tree(cols: torch.Tensor, cap_size: int) -> "DeviceTree":
@@ -54,24 +115,32 @@ class DeviceTree:
         self._cap_host = [tuple(int(arr[i, j]) for i in range(4))
                           for j in range(arr.shape[1])]
 
-    def prefetch_proofs(self, leaf_indices):
-        """Gather every queried leaf and sibling path in one host transfer
-        (the reference's FetchCollector, collapsed to one gather per tree)."""
+    def prefetch_proofs(self, leaf_indices, collector=None):
+        """Gather every queried leaf and sibling path: one gather, fetched
+        with the ``collector``'s flush, or at once without one."""
         idxs = sorted(set(int(i) for i in leaf_indices) - set(self._path_cache))
         if not idxs:
             return
         depth = len(self.layers) - 1  # the path excludes the cap layer
-        dev = self.layers[0].device
-        idx = upload(np.asarray(idxs, np.int64), dev)
-        parts = [self.layers[level][:, (idx >> level) ^ 1]
-                 for level in range(depth)]
-        parts.append(self.layers[0][:, idx])
-        arr = gl.to_u64(torch.stack(parts))  # (depth + 1, 4, q)
-        for qi, leaf_idx in enumerate(idxs):
-            leaf = tuple(int(arr[depth, i, qi]) for i in range(4))
-            path = [tuple(int(arr[level, i, qi]) for i in range(4))
-                    for level in range(depth)]
-            self._path_cache[leaf_idx] = (leaf, path)
+        idx = upload(np.asarray(idxs, np.int64), self.layers[0].device)
+
+        def gather(idx):
+            parts = [self.layers[level][:, (idx >> level) ^ 1]
+                     for level in range(depth)]
+            parts.append(self.layers[0][:, idx])
+            return torch.stack(parts)  # (depth + 1, 4, q)
+
+        def ingest(arr):
+            for qi, leaf_idx in enumerate(idxs):
+                leaf = tuple(int(arr[depth, i, qi]) for i in range(4))
+                path = [tuple(int(arr[level, i, qi]) for i in range(4))
+                        for level in range(depth)]
+                self._path_cache[leaf_idx] = (leaf, path)
+
+        coll, alone = _flush_alone(collector)
+        coll.add_gather(gather, (idx,), ingest)
+        if alone:
+            coll.flush()
 
     def get_proof(self, idx: int):
         if int(idx) not in self._path_cache:
@@ -93,19 +162,30 @@ class DeviceFlatOracle:
     def get_cap(self):
         return self.tree.get_cap()
 
-    def prefetch(self, flat_indices):
+    def prefetch(self, flat_indices, collector=None):
+        """Gather the queried leaves' chunks and paths: fetched with the
+        ``collector``'s flush, or at once without one."""
         e = self.elems_per_leaf
         leaf_idxs = sorted(set(int(i) // e for i in flat_indices))
-        self.tree.prefetch_proofs(leaf_idxs)
-        starts = upload(np.asarray(leaf_idxs, np.int64),
-                        self.c0.device)[:, None] * e
-        gidx = (starts + torch.arange(e, device=self.c0.device)).reshape(-1)
-        both = gl.to_u64(torch.stack([self.c0[gidx], self.c1[gidx]]))
-        v0 = both[0].reshape(-1, e)
-        v1 = both[1].reshape(-1, e)
-        for row, li in enumerate(leaf_idxs):
-            self._chunk_cache[li] = ([int(x) for x in v0[row]],
-                                     [int(x) for x in v1[row]])
+        coll, alone = _flush_alone(collector)
+        self.tree.prefetch_proofs(leaf_idxs, coll)
+        starts = upload(np.asarray(leaf_idxs, np.int64), self.c0.device)
+
+        def gather(starts):
+            gidx = (starts[:, None] * e
+                    + torch.arange(e, device=starts.device)).reshape(-1)
+            return torch.stack([self.c0[gidx], self.c1[gidx]])
+
+        def ingest(both):
+            v0 = both[0].reshape(-1, e)
+            v1 = both[1].reshape(-1, e)
+            for row, li in enumerate(leaf_idxs):
+                self._chunk_cache[li] = ([int(x) for x in v0[row]],
+                                         [int(x) for x in v1[row]])
+
+        coll.add_gather(gather, (starts,), ingest)
+        if alone:
+            coll.flush()
 
     def query(self, flat_idx: int) -> OracleQuery:
         leaf_idx = int(flat_idx) // self.elems_per_leaf
@@ -175,7 +255,7 @@ def do_fri_device(h, transcript, schedule: list[int], lde_factor: int,
         else:
             result.intermediate_oracles.append(oracle)
         if is_dev:
-            chs = sq_chain_dev(transcript.get_ext_challenge(), k)
+            chs = ext2.prepare(sq_chain_dev(transcript.get_ext_challenge(), k))
         else:
             c = (transcript.get_challenge(), transcript.get_challenge())
             chs = []
@@ -192,7 +272,8 @@ def do_fri_device(h, transcript, schedule: list[int], lde_factor: int,
     coset = int(npgl.inv(np.uint64(coset_inv)))
     result.final_layer = (cur0, cur1, coset, final_degree)
     if not is_dev:
-        finish_fri(result, gl.to_u64(cur0), gl.to_u64(cur1), transcript)
+        f0, f1 = gl.to_u64(torch.stack([cur0, cur1]))  # one fetch
+        finish_fri(result, f0, f1, transcript)
     return result
 
 

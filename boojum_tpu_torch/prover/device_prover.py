@@ -38,8 +38,9 @@ from ..ntt import ntt
 from ..transcript import make_transcript
 from ..utils import npgl
 from . import device as dops
-from .device_merkle import do_fri_device, finish_fri
-from .device_transcript import DeviceTranscript, ext_pow_table_dev
+from .device_merkle import FetchCollector, do_fri_device, finish_fri
+from .device_transcript import (DeviceTranscript, ext_pow_table_dev,
+                                prepare_ext)
 from .device_witness import DeviceWitnessProgram
 from .fri import _inverse_roots_bitreversed, compute_fri_schedule
 from .jit_ops import EV, affine
@@ -132,11 +133,15 @@ class DeviceProver:
 
     def prove(self, transcript_kind: str = "poseidon",
               hasher: str = "poseidon2", verbose: bool = False,
-              device_transcript: bool = None) -> Proof:
+              device_transcript: bool = None, on_stage=None) -> Proof:
         """``device_transcript``: None takes the device transcript on a CUDA
         device and the host one on the CPU (the reference's rule, fuse =
         off the CPU); True takes it anywhere (on the CPU through its plain
-        versions); False keeps the host transcript."""
+        versions); False keeps the host transcript. ``verbose`` prints the
+        stage split (each stage ends in a device sync); ``on_stage(label)``,
+        if given, is called at the end of each stage of that split, after
+        the sync and outside the stages' times (`chip_smoke.py` profiles
+        each stage through it)."""
         cs = self.cs
         cfg = self.cfg
         _check_supported(cs, cfg, hasher)
@@ -159,14 +164,18 @@ class DeviceProver:
 
         def stage(label):
             # stage split for verbose runs: syncs so each stage owns its time
-            if verbose:
+            if verbose or on_stage is not None:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 now = time.time()
                 self.last_stage_times[label] = now - t_last[0]
-                print("[torch-prove] %-24s %.3fs" % (label, now - t_last[0]),
-                      file=sys.stderr, flush=True)
-                t_last[0] = now
+                if verbose:
+                    print("[torch-prove] %-24s %.3fs" % (label,
+                                                         now - t_last[0]),
+                          file=sys.stderr, flush=True)
+                if on_stage is not None:
+                    on_stage(label)
+                t_last[0] = time.time()
 
         def oracle(cols, lde, tree_lde=None, monomials=None):
             return DeviceOracle(cols, lde, cap_size, hasher,
@@ -190,15 +199,15 @@ class DeviceProver:
                 transcript.witness_merkle_tree_cap(orc.get_cap())
 
         def ext_challenge():
-            if use_dev_ts:  # a (2,) device tensor
-                return transcript.get_ext_challenge()
+            if use_dev_ts:  # on the device, split once for the multiplies
+                return prepare_ext(transcript.get_ext_challenge())
             return _s2(tuple(transcript.get_multiple_challenges(2)))
 
         def pow_table(c, count):
-            """[1, c, .., c^(count-1)]: rows of a device table, or host
-            pairs."""
+            """[1, c, .., c^(count-1)]: the prepared rows of a device table,
+            or host pairs."""
             if use_dev_ts:
-                return ext_pow_table_dev(c, count)
+                return ext2.prepare(ext_pow_table_dev(c, count))
             pows = [(1, 0)]
             for _ in range(count - 1):
                 pows.append(ext2.s2_mul(pows[-1], c))
@@ -444,9 +453,13 @@ class DeviceProver:
             q_mono = ntt.coset_intt_fourstep_cols(q2, g)
         else:
             q_mono = ntt.coset_intt_cols(q2, g, ntt.get_plan((qd * n).bit_length() - 1))
-        if cs.config.runtime_asserts:
-            last = gl.to_u64(q_mono[-1])
-            if last[0] or last[1]:
+        # the quotient's top coefficient is zero for a satisfied circuit; it
+        # is checked on the host at the next fetch (the evaluations', or the
+        # device transcript's handoff), not with a wait of its own
+        q_top = q_mono[-1:].clone() if cs.config.runtime_asserts else None
+
+        def check_quotient_top(top):
+            if top[0] or top[1]:
                 cs.check_if_satisfied(verbose=True)
                 raise AssertionError("unsatisfied circuit (see row report above)")
         # chunk k of component c -> monomial column 2k + c, (n, 2·qd)
@@ -463,7 +476,7 @@ class DeviceProver:
         # fetches them in one transfer and absorbs host pairs.
         z_pt = ext_challenge()
         if use_dev_ts:
-            zw = torch.stack([gl.mul(z_pt[0], omega), gl.mul(z_pt[1], omega)])
+            zw = prepare_ext(gl.mul(z_pt.pair(), omega))
         else:
             zw = ext2.s2_mul(z_pt, (omega, 0))
         w_mono = witness_oracle.monomials
@@ -516,14 +529,20 @@ class DeviceProver:
         if use_dev_ts:
             for t in values:
                 transcript.absorb_interleaved_dev(t[:, 0], t[:, 1])
+            # DEEP's operands: each value as a pair of 0-dim tensors
+            pairs = [list(zip(t[:, 0].unbind(0), t[:, 1].unbind(0)))
+                     for t in values]
         else:
-            fetched = iter(gl.to_u64(torch.cat(values)).tolist())
-            values = [[tuple(next(fetched)) for _ in range(t.shape[0])]
-                      for t in values]
+            tops = [] if q_top is None else [q_top]
+            fetched = iter(gl.to_u64(torch.cat(values + tops)).tolist())
+            values = pairs = [[tuple(next(fetched)) for _ in range(t.shape[0])]
+                              for t in values]
+            if q_top is not None:
+                check_quotient_top(next(fetched))
             for t in values:
                 transcript.witness_field_elements([x for r in t for x in r])
-        values_at_z, values_at_z_omega = values[:2]
-        values_at_0 = values[2] if lp.lookup_is_allowed else []
+        values_at_z, values_at_z_omega = pairs[:2]
+        values_at_0 = pairs[2] if lp.lookup_is_allowed else []
         stage("evaluations")
 
         # -- stage 9: DEEP linear combination ----------------------------------
@@ -605,7 +624,10 @@ class DeviceProver:
                 + fri_oracles
             transcript, fetched = transcript.handoff_to_host(
                 list(fri_result.final_layer[:2]) + values
-                + [o.tree.layers[-1] for o in capped])
+                + [o.tree.layers[-1] for o in capped]
+                + ([] if q_top is None else [q_top]))
+            if q_top is not None:
+                check_quotient_top(fetched.pop()[0])
             finish_fri(fri_result, fetched[0], fetched[1], transcript)
             pairs = [[(int(a), int(b)) for a, b in v]
                      for v in fetched[2:2 + len(values)]]
@@ -625,10 +647,13 @@ class DeviceProver:
             picks.append((_u64_from_lsb(bits[num_inner_bits:]),
                           _u64_from_lsb(bits[:num_inner_bits])))
         flat_idx = [c * n + i for (c, i) in picks]
+        # every gather of the query phase (leaf rows, Merkle paths, FRI
+        # chunks) comes to the host in ONE transfer
+        coll = FetchCollector()
         main = [witness_oracle, stage2_oracle, quotient_oracle, setup_oracle]
-        rows = [o.query_many(flat_idx) for o in main]
+        rows = [o.query_many(flat_idx, collector=coll) for o in main]
         for o in main:
-            o.tree.prefetch_proofs(flat_idx)
+            o.tree.prefetch_proofs(flat_idx, collector=coll)
         fri_idx = [[] for _ in schedule]
         for (coset_idx, inner_idx) in picks:
             cur_domain, cur_inner = n, inner_idx
@@ -637,7 +662,9 @@ class DeviceProver:
                 cur_inner >>= k
                 cur_domain >>= k
         for o, idx in zip(fri_oracles, fri_idx):
-            o.prefetch(idx)
+            o.prefetch(idx, collector=coll)
+        coll.flush()
+        rows = [r.value for r in rows]
 
         rounds = []
         for q, (coset_idx, inner_idx) in enumerate(picks):

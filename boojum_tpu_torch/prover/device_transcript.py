@@ -19,7 +19,10 @@ Poseidon2 transcript kind runs its permutation through
 block.
 
 Ext challenges are (2,) int64 tensors [c0, c1] on the device (the JAX
-(2, 2) u32 limb layout, as u64 bit patterns).
+(2, 2) u32 limb layout, as u64 bit patterns). The prover prepares each one
+as it is drawn (`prepare_ext`), and each power table at once
+(`ext2.prepare`), so the stages multiply by them at the op count of host
+ints.
 """
 
 from __future__ import annotations
@@ -182,21 +185,30 @@ def _pair(a):
     return (a[..., 0], a[..., 1])
 
 
+def prepare_ext(ch: torch.Tensor) -> ext2.PreparedExt:
+    """A (2,) ext challenge, split once for the stages' multiplies (a
+    table of them: `ext2.prepare`, one pass for all rows)."""
+    return ext2.prepare(ch)[0]
+
+
 def ext_mul_dev(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Ext product of (..., 2) tensors."""
     return torch.stack(ext2.mul(_pair(a), _pair(b)), dim=-1)
 
 
-def ext_pow_table_dev(ch: torch.Tensor, count: int) -> torch.Tensor:
-    """(2,) ext challenge -> (count, 2) powers [1, c, c^2, ...], by doubling
-    (`ext2.powers`: log2(count) vectorized ext multiplies)."""
+def ext_pow_table_dev(ch, count: int) -> torch.Tensor:
+    """Ext challenge ((2,) tensor or `PreparedExt`) -> (count, 2) powers
+    [1, c, c^2, ...], by doubling (`ext2.powers`: one vectorized ext
+    multiply per doubling)."""
     return torch.stack(ext2.powers(ch, count, ch.device), dim=1)
 
 
 def sq_chain_dev(ch: torch.Tensor, k: int) -> torch.Tensor:
     """(2,) ext challenge -> (k, 2) squaring chain [c, c^2, c^4, ...] (the
-    per-FRI-round fold-challenge table)."""
-    rows = [ch]
-    for _ in range(k - 1):
-        rows.append(ext_mul_dev(rows[-1], rows[-1]))
-    return torch.stack(rows)
+    per-FRI-round fold-challenge table), written row by row into one
+    table."""
+    out = ch.new_empty((k, 2))
+    out[0] = ch
+    for i in range(1, k):
+        out[i] = ext_mul_dev(out[i - 1], out[i - 1])
+    return out

@@ -12,9 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..field import goldilocks as gl
 from . import device as dops
-from .device_merkle import build_device_tree
+from .device_merkle import _flush_alone, build_device_tree
 from .proof import OracleQuery
 
 
@@ -55,11 +54,20 @@ class DeviceOracle:
     def get_cap(self):
         return self.tree.get_cap()
 
-    def query_many(self, flat_indices) -> np.ndarray:
-        """Leaf values of all queries at once -> (q, k) host u64."""
+    def query_many(self, flat_indices, collector=None):
+        """Leaf values of all queries at once -> (q, k) host u64. With a
+        ``collector`` the gather rides its flush, and the returned holder
+        has the rows as ``.value`` once it has flushed."""
         idx = dops.upload(np.asarray(flat_indices, np.int64),
                           self.flat_t.device)
-        return gl.to_u64(self.flat_t[:, idx].T)
+        out = _Rows()
+        coll, alone = _flush_alone(collector)
+        coll.add_gather(lambda i: self.flat_t[:, i].T, (idx,),
+                        lambda rows: setattr(out, "value", rows))
+        if alone:
+            coll.flush()
+            return out.value
+        return out
 
     def query(self, coset_idx: int, inner_idx: int, cached_rows,
               row_pos: int) -> OracleQuery:
@@ -69,15 +77,22 @@ class DeviceOracle:
         return OracleQuery(leaf_elements=[int(v) for v in vals], proof=path)
 
 
+class _Rows:
+    """Rows of a deferred `DeviceOracle.query_many`, set at the flush."""
+
+    __slots__ = ("value",)
+
+
 def eval_monomial_sets_at(sets) -> list:
     """sets: list of (monomials (n, k), point) with ``point`` an ext scalar:
-    a (c0, c1) pair of host ints, or a (2,) device tensor. Returns, per set,
+    a (c0, c1) tuple of host ints, or a device scalar (a `PreparedExt` or a
+    (2,) tensor). Returns, per set,
     the two (k,) component tensors (Σ c_i·(z^i)_c0, Σ c_i·(z^i)_c1) on the
     device; one power table per distinct point."""
     tables = {}
     out = []
     for mono, point in sets:
-        dev_point = isinstance(point, torch.Tensor)
+        dev_point = not isinstance(point, tuple)
         key = id(point) if dev_point else (int(point[0]), int(point[1]))
         if key not in tables:
             tables[key] = dops.powers_of_ext(

@@ -51,10 +51,9 @@ _SIGNATURES = {
         "sha256_witness": [_P, _P, _P, _LL, _P],  # blocks, init, out, nb, stream
     },
     "poseidon": {
-        # state, elements, k, out state, constants table, stream
+        # state, elements, k, out state, round constants, stream
         "poseidon_absorb": [_P, _P, _LL, _P, _P, _P],
-        "poseidon_permute": [_P, _P, _P, _P],  # state, out, table, stream
-        "poseidon_table_size": [],
+        "poseidon_permute": [_P, _P, _P, _P],  # state, out, constants, stream
     },
 }
 
@@ -201,6 +200,44 @@ def sass_summary(instrs, trips=()) -> dict:
         out["integer_per_pass"] = out["integer"] + sum(
             (t - 1) * lp["integer"] for t, lp in zip(trips, inner))
     return out
+
+
+def chain_per_round(lib, instrs, summary):
+    """Integer-pipe SASS instructions of one round of a sequential kernel's
+    chain. K6 (`poseidon`): a permutation's integer instructions over its 30
+    rounds, each round loop's body counted its trips: the innermost loops of
+    20 or more integer instructions are the round loops, three of them 4
+    full, 22 partial and 4 full rounds, one of them the 22 partial rounds (or
+    all 30, when it holds most of the kernel), none when all are unrolled.
+    K5 (`sha256_witness`): the innermost loop holding the most funnel shifts
+    is the chain's, and a round has six (the rotations of s0 and s1); None
+    when the kernel has no such loop."""
+    inner = [lp for lp in summary["loops"] if not any(
+        o is not lp and lp["start"] <= o["start"] and o["end"] <= lp["end"]
+        for o in summary["loops"])]
+    if lib == "poseidon":
+        rounds = [lp for lp in inner if lp["integer"] >= 20]
+        if not rounds:
+            return round(summary["integer"] / 30, 1)
+        if len(rounds) == 1:
+            trips = (30,) if rounds[0]["integer"] > summary["integer"] / 2 \
+                else (22,)
+        elif len(rounds) == 3:
+            trips = (4, 22, 4)
+        else:
+            return None
+        extra = sum(lp["integer"] for lp in summary["loops"]
+                    if lp in inner and lp not in rounds)
+        per_pass = summary["integer"] - extra + sum(
+            (t - 1) * lp["integer"] for t, lp in zip(trips, rounds))
+        return round(per_pass / 30, 1)
+    best = None
+    for lp in inner:
+        shf = sum(op.startswith("SHF") for a, op, _ in instrs
+                  if lp["start"] <= a <= lp["end"])
+        if shf >= 6 and (best is None or shf > best[0]):
+            best = (shf, lp["integer"])
+    return None if best is None else round(best[1] / (best[0] / 6), 1)
 
 
 def stream_handle(t) -> int:

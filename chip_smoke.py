@@ -25,9 +25,13 @@ before it and read just after:
   (`poseidon_sponge` more than once a prove). Five warm proves with the
   device transcript alternate with five with the host transcript
   (`device_transcript=False`), which must give the same digest; both sets
-  of times are printed, and one warm prove in each mode is
-  run under `torch.cuda.set_sync_debug_mode("warn")` to count its
-  synchronizing calls by source line. It records the kernel launches of one
+  of times are printed. Each mode's stage split comes from synced proves
+  alternated with the other mode's, and each stage's kernel count and
+  device time from one prove a mode under `torch.profiler`. One warm prove
+  in each mode is run under `torch.cuda.set_sync_debug_mode("warn")` to
+  count its synchronizing calls by source line: at most 3 with the device
+  transcript (the handoff, the query phase's one fetch, the closing
+  synchronize) and 12 with the host one. It records the kernel launches of one
   prove by shape, holds each shape bit-exactly against its plain version,
   times it and prints, per kernel, the sum over a prove of launches x time
   and of launches x (time - bound);
@@ -78,6 +82,12 @@ POSEIDON_MULS = P2_MULS
 K5_REPLACES = "boojum_tpu/gadgets/sha256.py:545"
 # warm flagship proves in each transcript mode, alternated
 WARM_ROUNDS = 5
+# synced proves a mode, alternated, for the stage split of each mode
+PROFILE_ROUNDS = 2
+# most synchronizing calls a warm prove may make: the device transcript's
+# handoff, the query phase's one fetch and the closing synchronize; the
+# host transcript adds its cap reads, the evaluations and the final layer
+MAX_SYNCS = {"device": 3, "host": 12}
 K6_REPLACES = "boojum_tpu/prover/device_transcript.py:87"
 # Dependency-chain model of the two sequential kernels (not a measured
 # bound): a SHA-256 round's critical path, e -> s1 -> tmp1 -> tmp1w -> te,
@@ -175,6 +185,20 @@ def sass_report():
     from boojum_tpu_torch.utils import cuda_build
 
     report = {}
+    for lib in ("sha256_witness", "poseidon"):
+        for kname, instrs in sorted(
+                cuda_build.sass(cuda_build._lib_path(lib)).items()):
+            s = cuda_build.sass_summary(instrs)
+            short = next((t for t in ("absorb_kernel", "permute_kernel",
+                                      "sha256_witness_kernel")
+                          if t in kname), kname)
+            s["integer_per_round"] = cuda_build.chain_per_round(lib, instrs,
+                                                                s)
+            report["%s/%s" % (lib, short)] = s
+            log("sass %s %s: %d instructions, %d integer-pipe, %d IMAD, "
+                "%d loops, %s integer per round" % (
+                    lib, short, s["total"], s["integer"], s["imad"],
+                    len(s["loops"]), s["integer_per_round"]))
     for lib in ("poseidon2", "ntt_stage", "ntt_small"):
         trips = cuda_build.P2_ROUND_TRIPS if lib == "poseidon2" else ()
         for kname, instrs in sorted(
@@ -752,6 +776,73 @@ def count_syncs(fn):
     return sites, out
 
 
+def stage_profiles(prover, ref, digest_of):
+    """Where each transcript mode's prove spends its time, stage by stage,
+    from one process: PROFILE_ROUNDS synced proves a mode, alternated (the
+    order flipped every round), give each stage's host wall clock (the mean;
+    the device syncs at every stage end); then one prove a mode under
+    `torch.profiler` (CUDA activity only) gives each stage's kernel count
+    and the summed device time of its kernels, each stage profiled apart
+    through the prove's ``on_stage`` hook. Every proof must be the
+    reference's. Prints one JSON line a mode and returns them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    modes = {"device": {}, "host": dict(device_transcript=False)}
+    walls = {m: collections.defaultdict(list) for m in modes}
+    for i in range(PROFILE_ROUNDS):
+        for mode in (("device", "host") if i % 2 == 0 else ("host", "device")):
+            proof = prover.prove(ref["transcript"], ref["hasher"],
+                                 on_stage=lambda label: None, **modes[mode])
+            if digest_of(proof) != ref["proof_json_sha256"]:
+                raise AssertionError("the %s-transcript proof differs from "
+                                     "the reference" % mode)
+            for label, t in prover.last_stage_times.items():
+                walls[mode][label].append(t)
+    out = {}
+    for mode, kw in modes.items():
+        rows, cur = {}, [None]
+
+        def start():
+            cur[0] = profile(activities=[ProfilerActivity.CUDA])
+            cur[0].__enter__()
+
+        def on_stage(label):
+            cur[0].__exit__(None, None, None)
+            kernels = [e for e in cur[0].events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            rows[label] = dict(
+                kernels=len(kernels),
+                device_ms=round(sum(e.time_range.end - e.time_range.start
+                                    for e in kernels) / 1e3, 3))
+            start()
+
+        start()
+        try:
+            proof = prover.prove(ref["transcript"], ref["hasher"],
+                                 on_stage=on_stage, **kw)
+        finally:
+            cur[0].__exit__(None, None, None)
+        if digest_of(proof) != ref["proof_json_sha256"]:
+            raise AssertionError("the profiled %s-transcript proof differs "
+                                 "from the reference" % mode)
+        for label, row in rows.items():
+            ts = walls[mode][label]
+            row["wall_s"] = round(sum(ts) / len(ts), 4)
+            row["profiled_wall_s"] = round(prover.last_stage_times[label], 4)
+        out[mode] = rows
+        log("flagship stage profile, %s transcript (wall: mean of %d synced "
+            "proves, alternated; kernels and device time: one profiled "
+            "prove): %s" % (mode, PROFILE_ROUNDS, json.dumps(rows)))
+    for mode in modes:
+        log("flagship synced proves, %s transcript: total wall %.4f s a "
+            "prove (mean), device time %.1f ms, %d kernels (profiled)" % (
+                mode, sum(r["wall_s"] for r in out[mode].values()),
+                sum(r["device_ms"] for r in out[mode].values()),
+                sum(r["kernels"] for r in out[mode].values())))
+    return out
+
+
 def flagship():
     """Synthesis, setup, one cold prove and five warm proves in each
     transcript mode on the card (the default prove: device witness program
@@ -884,27 +975,18 @@ def flagship():
     if digest != ref["proof_json_sha256"]:
         raise AssertionError("flagship proof differs from the reference")
 
-    prover.prove(ref["transcript"], ref["hasher"], verbose=True)
-    log("flagship stage split (synced, one extra prove): " + json.dumps(
-        {k: round(v, 4) for k, v in prover.last_stage_times.items()}))
-
-    # the host transcript (the reference's device_transcript=False) must
-    # give the same proof
-    host_proof, t_host = prove(device_transcript=False, verbose=True)
-    host_digest = digest_of(host_proof)
-    log("flagship prove with device_transcript=False (synced): %.3f s, "
-        "sha256 %s, stage split %s" % (t_host, host_digest, json.dumps(
-            {k: round(v, 4) for k, v in prover.last_stage_times.items()})))
-    if host_digest != ref["proof_json_sha256"]:
-        raise AssertionError("the host-transcript proof differs from the "
-                             "reference")
-    for mode, kw in (("device transcript", {}),
-                     ("host transcript", dict(device_transcript=False))):
+    stage_profiles(prover, ref, digest_of)
+    for mode, kw in (("device", {}), ("host", dict(device_transcript=False))):
         sites, (_, t) = count_syncs(lambda: prove(**kw))
-        log("flagship synchronizing calls, one warm prove with the %s: %d "
-            "(%.3f s); by source line: %s" % (
+        log("flagship synchronizing calls, one warm prove with the %s "
+            "transcript: %d (%.3f s); by source line: %s" % (
                 mode, sum(sites.values()), t,
                 json.dumps(dict(sites.most_common()))))
+        if sum(sites.values()) > MAX_SYNCS[mode]:
+            raise AssertionError(
+                "a warm prove with the %s transcript made %d synchronizing "
+                "calls, more than %d" % (mode, sum(sites.values()),
+                                         MAX_SYNCS[mode]))
     device_prover.materialize_witness_columns = materialize
     return counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes
 

@@ -1,17 +1,24 @@
-"""Compare versions of the Poseidon2, ntt_stage and ntt_small kernels on one
-card: SASS instruction counts and times, in one process.
+"""Compare versions of the Poseidon2, ntt_stage, ntt_small, poseidon (K6)
+and sha256_witness (K5) kernels on one card: SASS instruction counts and
+times, in one process.
 
-Each variant is ``LABEL=CSRC_DIR``; its `poseidon2.cu`, `ntt_stage.cu` and
-`ntt_small.cu` are compiled by `boojum_tpu_torch/utils/cuda_build.build`
-into `boojum_tpu_torch/_build/compare/<label>/`. Per kernel it prints one
+Each variant is ``LABEL=CSRC_DIR``; its `poseidon2.cu`, `ntt_stage.cu`,
+`ntt_small.cu`, `poseidon.cu` and `sha256_witness.cu` are compiled by
+`boojum_tpu_torch/utils/cuda_build.build` into
+`boojum_tpu_torch/_build/compare/<label>/`. Per kernel it prints one
 JSON line of SASS counts (`cuda_build.sass_summary`): all instructions,
-integer-pipe ones, IMADs and the loops, and for the Poseidon2 permutation
+integer-pipe ones, IMADs and the loops, for the Poseidon2 permutation
 kernel the integer instructions per permutation (each round loop's body
-times its trip count). Then it times `poseidon2_permute` at B = 2^16 and
-2^20, `ntt_stage` at (256, 2^17) forward with the cross twiddle (twmode 1)
-and `ntt_small` at (512, 2^18) and (8, 2^24), forward and inverse, the
-variants in turns (A B ... B A), and checks that every variant's outputs
-equal the first's. An `ntt_small.cu` without the cross-twiddle epilogue
+times its trip count), and for K5 and K6 the integer instructions of one
+round of their chains (`cuda_build.chain_per_round`). Then it times
+`poseidon2_permute` at B = 2^16 and 2^20, `ntt_stage` at (256, 2^17)
+forward with the cross twiddle (twmode 1), `ntt_small` at (512, 2^18) and
+(8, 2^24), forward and inverse, `poseidon_absorb` at 62 rate blocks (the
+flagship prove's largest), `poseidon_permute` and `sha256_witness` at 129
+blocks (the flagship's), the variants in turns (A B ... B A), and checks
+that every variant's outputs equal the first's. Every K6 variant gets the
+round constants followed by the MDS exponents (the table of the first K6,
+whose successor reads only the constants). An `ntt_small.cu` without the cross-twiddle epilogue
 (before `tt_shift`) has the older entry (x, y, stage table, log_n, batch,
 inverse, n^-1, stream); the script calls each variant by its own. Needs the
 card and the CUDA toolkit:
@@ -28,7 +35,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-LIBS = ("poseidon2", "ntt_stage", "ntt_small")
+LIBS = ("poseidon2", "ntt_stage", "ntt_small", "poseidon", "sha256_witness")
 
 
 def sass_lines(label, out_dir):
@@ -38,9 +45,13 @@ def sass_lines(label, out_dir):
         for kname, instrs in sorted(cuda_build.sass(lib).items()):
             # the permutation kernel: "poseidon2_kernel" before the fused
             # entries came, "permute_kernel" since
-            per_perm = "permute_kernel" in kname or "poseidon2_kernel" in kname
+            per_perm = name == "poseidon2" and (
+                "permute_kernel" in kname or "poseidon2_kernel" in kname)
             s = cuda_build.sass_summary(
                 instrs, cuda_build.P2_ROUND_TRIPS if per_perm else ())
+            if name in ("poseidon", "sha256_witness"):
+                s["integer_per_round"] = cuda_build.chain_per_round(
+                    name, instrs, s)
             print(json.dumps(dict(variant=label, library=name, kernel=kname,
                                   **s)), flush=True)
 
@@ -51,8 +62,8 @@ def load(out_dir, csrc):
     import numpy as np
     from boojum_tpu_torch.hash import poseidon2 as p2mod
     from boojum_tpu_torch.utils import cuda_build
-    p2, k1, k4 = (cuda_build.open_lib(os.path.join(out_dir, "lib%s.so" % name),
-                                      name) for name in LIBS)
+    p2, k1, k4, k6, k5 = (cuda_build.open_lib(
+        os.path.join(out_dir, "lib%s.so" % name), name) for name in LIBS)
     with open(os.path.join(csrc, "ntt_small.cu")) as f:
         k4.epilogue = "tt_shift" in f.read()
     if not k4.epilogue:
@@ -67,7 +78,7 @@ def load(out_dir, csrc):
         np.asarray([1 << s for s in p2mod._DIAG_SHIFTS], np.uint64)
     cuda_build.check(p2.poseidon2_set_constants(rc.ctypes.data,
                                                 diag.ctypes.data), "constants")
-    return p2, k1, k4
+    return p2, k1, k4, k6, k5
 
 
 def main(argv):
@@ -160,6 +171,45 @@ def main(argv):
                                                      inner, 15)
     cases["ntt_small (8, 2^24) twiddle"] = k4_case(3, 1 << 24, False,
                                                    outer, 3)
+
+    # K6 and K5 at the flagship prove's shapes
+    from boojum_tpu_torch.gadgets.sha256 import INITIAL_STATE
+    from boojum_tpu_torch.hash import poseidon
+    k6_table = gl.from_u64(np.concatenate([
+        np.asarray(poseidon._RC, np.uint64),
+        np.asarray(poseidon._EXPS, np.uint64)]), "cuda")
+    k6_state = gl.from_u64(rng.integers(0, gl.ORDER, 12, dtype=np.uint64),
+                           "cuda")
+    k6_elems = gl.from_u64(rng.integers(0, gl.ORDER, 62 * 8 - 1,
+                                        dtype=np.uint64), "cuda")
+
+    def k6_absorb(lib):
+        out = torch.empty_like(k6_state)
+        cuda_build.check(lib[3].poseidon_absorb(
+            k6_state.data_ptr(), k6_elems.data_ptr(), k6_elems.shape[0],
+            out.data_ptr(), k6_table.data_ptr(), stream), "poseidon_absorb")
+        return out
+
+    def k6_permute(lib):
+        out = torch.empty_like(k6_state)
+        cuda_build.check(lib[3].poseidon_permute(
+            k6_state.data_ptr(), out.data_ptr(), k6_table.data_ptr(), stream),
+            "poseidon_permute")
+        return out
+
+    blocks = torch.as_tensor(rng.integers(0, 256, (129, 64)),
+                             dtype=torch.int64).cuda()
+    init = torch.tensor(INITIAL_STATE, dtype=torch.int64).cuda()
+
+    def k5_call(lib):
+        out = blocks.new_empty((20, 129, 64))
+        cuda_build.check(lib[4].sha256_witness(
+            blocks.data_ptr(), init.data_ptr(), out.data_ptr(), 129, stream),
+            "sha256_witness")
+        return out
+    cases["poseidon_absorb 62 blocks"] = k6_absorb
+    cases["poseidon_permute"] = k6_permute
+    cases["sha256_witness nb=129"] = k5_call
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

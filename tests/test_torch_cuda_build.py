@@ -33,3 +33,43 @@ def test_sass_summary_counts_loops_and_trips():
     assert s["integer_per_pass"] == 5 + 3 + 21 + 3
     with pytest.raises(ValueError):
         cuda_build.sass_summary(LISTING, (4, 22))
+
+
+
+def test_chain_per_round():
+    """K6: three innermost round loops take the trips (4, 22, 4), over 30
+    rounds. K5: the innermost loop with the most funnel shifts (six a
+    round) is the chain's; a kernel without one gives None."""
+    s = cuda_build.sass_summary(LISTING)
+    assert cuda_build.chain_per_round("sha256_witness", LISTING, s) is None
+    # K6: a small loop (3 integer instructions, left out), then three round
+    # loops of 20 integer instructions each, 5 integer instructions outside
+    add = ("IADD3", "IADD3 R1, R1, R2, R3")
+    k6 = [(0x0, "LOP3.LUT", "LOP3.LUT R1, R1, R2, RZ, 0x3c, !PT"),
+          (0x10, *add), (0x20, *add), (0x30, *add),
+          (0x40, "BRA", "@P0 BRA 0x10")]
+    addr = 0x50
+    for _ in range(3):
+        start = addr
+        for _ in range(20):
+            k6.append((addr, *add))
+            addr += 0x10
+        k6.append((addr, "BRA", "@P1 BRA %#x" % start))
+        addr += 0x10
+    k6 += [(addr + 0x10 * i, *add) for i in range(4)]
+    s = cuda_build.sass_summary(k6)
+    assert cuda_build.chain_per_round("poseidon", k6, s) == \
+        round((5 + 30 * 20) / 30, 1)
+    # two rounds (12 funnel shifts) and an add in one loop; a loop with one
+    # shift after it
+    shf = "SHF.R.W.U32"
+    chain = [(0x00, "IMAD", "IMAD R1, R2, R3, R4")]
+    chain += [(0x10 * (i + 1), shf, shf + " R1, R1, 0x6, R1")
+              for i in range(12)]
+    chain += [(0xd0, "IADD3", "IADD3 R1, R1, R2, R3"),
+              (0xe0, "BRA", "@P0 BRA 0x10"),
+              (0xf0, shf, shf + " R2, R2, 0x7, R2"),
+              (0x100, "BRA", "@P1 BRA 0xf0"),
+              (0x110, "EXIT", "EXIT")]
+    s = cuda_build.sass_summary(chain)
+    assert cuda_build.chain_per_round("sha256_witness", chain, s) == 6.5

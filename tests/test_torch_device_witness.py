@@ -86,6 +86,106 @@ def test_sha256_witness_dev_matches_jax_host(nb):
     assert np.array_equal(got.numpy().view(np.uint64), want)
 
 
+def _ror(v, r):
+    return ((v >> r) | (v << (32 - r))) & 0xFFFFFFFF
+
+
+def emulate_k5(blocks: torch.Tensor, init: torch.Tensor) -> torch.Tensor:
+    """csrc/sha256_witness.cu's phases in torch: the schedules; the chain on
+    Python ints in 32 bits, recording only new_e and new_a (and each block's
+    start state); then the expansion of every (block, round) pair at once
+    from that history, W and K, with the exact 64-bit sums."""
+    nb = blocks.shape[0]
+    be = blocks.reshape(nb, 16, 4)
+    w = [((be[:, i, 0] << 24) | (be[:, i, 1] << 16) | (be[:, i, 2] << 8)
+          | be[:, i, 3]) for i in range(16)]
+    sch = []
+    for i in range(16, 64):
+        x0, x1 = w[i - 15], w[i - 2]
+        t = (_ror(x0, 7) ^ _ror(x0, 18) ^ (x0 >> 3)) + \
+            (_ror(x1, 17) ^ _ror(x1, 19) ^ (x1 >> 10)) + w[i - 7] + w[i - 16]
+        sch.append(t)
+        w.append(t & 0xFFFFFFFF)
+    w = torch.stack(w, dim=1)  # (nb, 64)
+    k = torch.tensor(sha.ROUND_CONSTANTS, dtype=torch.int64)
+
+    # the chain thread: 32-bit new_e / new_a only
+    m32 = 0xFFFFFFFF
+    st = [int(v) for v in init]
+    start, new_a, new_e = [], [], []
+    for b in range(nb):
+        start.append(list(st))
+        a, bb, c, d, e, f, g, h = st
+        ra, re_ = [], []
+        for r in range(64):
+            x = (h + int(k[r]) + int(w[b, r])) & m32
+            s1 = _ror(e, 6) ^ _ror(e, 11) ^ _ror(e, 25)
+            ch = (e & f) ^ (~e & g & m32)
+            ne = (x + d + s1 + ch) & m32
+            na = (x + (_ror(a, 2) ^ _ror(a, 13) ^ _ror(a, 22))
+                  + ((a & bb) ^ (a & c) ^ (bb & c)) + s1 + ch) & m32
+            ra.append(na)
+            re_.append(ne)
+            h, g, f, e, d, c, bb, a = g, f, e, ne, c, bb, a, na
+        new_a.append(ra)
+        new_e.append(re_)
+        st = [(u + v) & m32 for u, v in zip(st, (a, bb, c, d, e, f, g, h))]
+
+    # the expansion: history padded with the start states, A(-1..-4) =
+    # a, b, c, d and E(-1..-4) = e, f, g, h
+    st_t = torch.tensor(start, dtype=torch.int64)  # (nb, 8)
+    hist_a = torch.cat([st_t[:, :4].flip(1), torch.tensor(new_a)], dim=1)
+    hist_e = torch.cat([st_t[:, 4:].flip(1), torch.tensor(new_e)], dim=1)
+
+    def back(hist, j):  # value j rounds before round r, for all r
+        return hist[:, 4 - j:68 - j]
+
+    a, b, c, d = (back(hist_a, j) for j in (1, 2, 3, 4))
+    e, f, g, h = (back(hist_e, j) for j in (1, 2, 3, 4))
+    s1 = _ror(e, 6) ^ _ror(e, 11) ^ _ror(e, 25)
+    ch = (e & f) ^ ((~e & m32) & g)
+    s0 = _ror(a, 2) ^ _ror(a, 13) ^ _ror(a, 22)
+    maj = (a & b) ^ (a & c) ^ (b & c)
+    tmp1 = h + s1 + ch + k
+    tmp1w = tmp1 + w
+    te, ta = tmp1w + d, s0 + maj + tmp1w
+    fin = st_t + torch.cat([hist_a[:, 64:].flip(1), hist_e[:, 64:].flip(1)],
+                          dim=1)
+    out = blocks.new_zeros((sw.ROWS, nb, 64))
+    sch_t = torch.stack(sch, dim=1)
+    rows = dict(W=w, s1=s1, ch=ch, s0=s0, maj=maj, new_e=te & m32,
+                new_a=ta & m32)
+    for name, v in dict(tmp1=tmp1, tmp1w=tmp1w, te=te, ta=ta).items():
+        rows[name + "_lo"], rows[name + "_hi"] = v & m32, v >> 32
+    for name, v in rows.items():
+        out[sw.ROW[name]] = v
+    out[sw.ROW["sch_lo"], :, :48] = sch_t & m32
+    out[sw.ROW["sch_hi"], :, :48] = sch_t >> 32
+    out[sw.ROW["state_in"], :, :8] = st_t
+    out[sw.ROW["fin_lo"], :, :8] = fin & m32
+    out[sw.ROW["fin_hi"], :, :8] = fin >> 32
+    return out
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+def test_k5_expansion_matches_plain_and_jax(nb, monkeypatch):
+    """K5's record-and-expand order equals `compress_chain_plain` row for
+    row, and, put in its place, gives `_sha256_witness_dev` the JAX host
+    witness. The first words are all ones, so every wide sum carries."""
+    rng = np.random.default_rng(20 + nb)
+    blocks = rng.integers(0, 256, (nb, 64), dtype=np.uint64)
+    blocks[0, :16] = 0xFF
+    bt = torch.as_tensor(blocks.astype(np.int64))
+    init = torch.tensor(ref_sha.INITIAL_STATE, dtype=torch.int64)
+    got = emulate_k5(bt, init)
+    assert torch.equal(got, sw.compress_chain_plain(bt, init))
+    monkeypatch.setattr(sw, "compress_chain", emulate_k5)
+    want = ref_sha._flatten_witness(ref_sha._sha256_witness(
+        blocks, np.asarray(ref_sha.INITIAL_STATE, np.uint64)))
+    dev = sha._sha256_witness_dev(bt.reshape(-1), nb, ref_sha.INITIAL_STATE)
+    assert np.array_equal(dev.numpy().view(np.uint64), want)
+
+
 def test_compress_chain_input_checks():
     blocks = torch.zeros((2, 64), dtype=torch.int64)
     init = torch.tensor(sha.INITIAL_STATE, dtype=torch.int64)

@@ -1,6 +1,7 @@
 """The port's Goldilocks and GL2 tensor ops against the JAX package's field
 ops and the host numpy twin (utils/npgl), on random vectors and on the edge
-cases of tests/test_field.py. Every comparison is exact equality of
+cases of tests/test_field.py, with scalar operands as host ints, device
+tensors and prepared (split-once) device scalars. Every comparison is exact equality of
 canonical u64 values."""
 
 import numpy as np
@@ -11,6 +12,7 @@ from boojum_tpu.field import goldilocks as ref_gl
 from boojum_tpu.utils import npgl as ref_npgl
 from boojum_tpu_torch.field import extension as ext
 from boojum_tpu_torch.field import goldilocks as gl
+from boojum_tpu_torch.prover.jit_ops import affine
 from boojum_tpu_torch.utils import npgl
 
 P = gl.ORDER
@@ -129,6 +131,63 @@ def test_ext_inverse_scale_and_scans():
     want = ref_npgl.ext_powers(c, 100)
     assert np.array_equal(gl.to_u64(pw[0]), want[0])
     assert np.array_equal(gl.to_u64(pw[1]), want[1])
+
+
+# scalar operands that stress the limb split: zero, one, p - 1 (high half all
+# ones), 2^32 - 1 (low half all ones), 2^32, and for the multiply the raw
+# 2^64 - 1 pattern (not canonical: its product is reduced like any other)
+SCALAR_EDGES = [0, 1, P - 1, 0xFFFFFFFF, 0x100000000]
+RANDOM = int(np.random.default_rng(12).integers(0, P, dtype=np.uint64))
+
+
+def _ref_full(v, n):
+    return ref_gl.from_u64(np.full(n, v % P, np.uint64))
+
+
+@pytest.mark.parametrize("c", SCALAR_EDGES + [(1 << 64) - 1, RANDOM])
+def test_mul_by_prepared_scalar(c):
+    """`gl.mul` by a `Prepared` scalar (split once), by the same value as a
+    0-dim tensor (split at the call) and by a host int: all equal the JAX
+    field multiply, on random and edge vectors."""
+    a, _ = _vectors(7)
+    dev = gl.from_u64(np.asarray([c], np.uint64))
+    host = gl.to_u64(gl.mul(_t(a), c))
+    want = ref_gl.to_u64(ref_gl.mul(ref_gl.from_u64(a), _ref_full(c, len(a))))
+    assert np.array_equal(host, want)
+    assert np.array_equal(gl.to_u64(gl.mul(_t(a), gl.prepare(dev)[0])), want)
+    assert np.array_equal(gl.to_u64(gl.mul(_t(a), dev[0])), want)
+
+
+@pytest.mark.parametrize("c", [(0, 0), (1, 0), (0, 1), (P - 1, P - 1),
+                               (0xFFFFFFFF, 0x100000000),
+                               (0x100000000, P - 1), (RANDOM, P - 2)])
+def test_scale_and_affine_by_prepared_ext(c):
+    """`ext2.scale`, `ext2.base_scale` and `jit_ops.affine` with
+    `PreparedExt` scalars equal the host-pair path and the JAX GL2 ops."""
+    a0, a1 = _ext_pair(8)
+    n = len(a0)
+    ta = (_t(a0), _t(a1))
+    prep, gamma = ext.prepare(gl.from_u64(np.asarray([c, c[::-1]],
+                                                     np.uint64)))
+    ra = ref_ext.GL2(ref_gl.from_u64(a0), ref_gl.from_u64(a1))
+    rc = ref_ext.GL2(_ref_full(c[0], n), _ref_full(c[1], n))
+
+    def both(got, want0, want1):
+        assert np.array_equal(gl.to_u64(got[0]), ref_gl.to_u64(want0))
+        assert np.array_equal(gl.to_u64(got[1]), ref_gl.to_u64(want1))
+
+    want = ref_ext.mul(ra, rc)
+    both(ext.scale(ta, prep), want.c0, want.c1)
+    both(ext.scale(ta, c), want.c0, want.c1)
+    bw0 = ref_gl.mul(ra.c0, rc.c0)
+    bw1 = ref_gl.mul(ra.c0, rc.c1)
+    both(ext.base_scale(ta[0], prep), bw0, bw1)
+    both(ext.base_scale(ta[0], c), bw0, bw1)
+    # w + beta * s + gamma with beta = c and gamma = (c1, c0)
+    w0 = ref_gl.add(ref_gl.add(ra.c1, bw0), _ref_full(c[1], n))
+    w1 = ref_gl.add(bw1, _ref_full(c[0], n))
+    both(affine(ta[1], ta[0], prep, gamma), w0, w1)
+    both(affine(ta[1], ta[0], c, c[::-1]), w0, w1)
 
 
 def test_npgl_copy_matches_reference():

@@ -160,8 +160,9 @@ def test_poseidon2_node_layer_equals_plain(cuda, m):
     assert torch.equal(pp.node_layer(cur), pp.node_layer_plain(cur))
 
 
-@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("nb", [1, 3, 33, 129])
 def test_sha256_witness_equals_plain(cuda, nb):
+    """nb = 33 crosses the kernel's 32-block chunk; 129 is the flagship's."""
     blocks = torch.as_tensor(np.random.default_rng(nb).integers(
         0, 256, (nb, 64)), dtype=torch.int64).to(cuda)
     init = torch.tensor(INITIAL_STATE, dtype=torch.int64).to(cuda)
@@ -169,10 +170,23 @@ def test_sha256_witness_equals_plain(cuda, nb):
                        sw.compress_chain_plain(blocks, init))
 
 
-@pytest.mark.parametrize("k", [0, 1, 7, 8, 9, 17])
+@pytest.mark.parametrize("k", [0, 1, 7, 8, 9, 17, 495])
 def test_poseidon_sponge_equals_plain(cuda, k):
+    """k = 495: the flagship's largest absorb (62 rate blocks)."""
     st = _rand(cuda, 100 + k, (12,))
     el = _rand(cuda, k, (k,))
+    assert torch.equal(poseidon.sponge_absorb(st, el),
+                       poseidon.sponge_absorb_plain(st, el))
+    assert torch.equal(poseidon.sponge_permute(st),
+                       poseidon.sponge_permute_plain(st))
+
+
+def test_poseidon_sponge_edge_values_equal_plain(cuda):
+    """A state of p - 1 and 2^64 - 1 (not canonical) and elements of
+    2^64 - 1 and p: the kernel's lazy arithmetic takes any u64."""
+    st = gl.from_u64(np.asarray([P - 1] * 6 + [(1 << 64) - 1] * 6,
+                                np.uint64), cuda)
+    el = gl.from_u64(np.asarray([(1 << 64) - 1, P] * 8, np.uint64), cuda)
     assert torch.equal(poseidon.sponge_absorb(st, el),
                        poseidon.sponge_absorb_plain(st, el))
     assert torch.equal(poseidon.sponge_permute(st),

@@ -3,7 +3,8 @@
 package's `_leaf_hashes_traced` / `_node_layer_traced`, and a Python-int
 emulation of the Hopper kernels' lazy Goldilocks arithmetic
 (`csrc/goldilocks.cuh`) in the exact operation order of `csrc/poseidon2.cu`
-against the canonical permutation. The emulation checks every lazy result
+against the canonical permutation, and of `csrc/poseidon.cu` (the
+transcript's Poseidon, kernel K6) against the JAX package's permutation. The emulation checks every lazy result
 for range and congruence, so a range error shows here before the kernel
 runs on a card. Exact equality throughout."""
 
@@ -12,9 +13,11 @@ import pytest
 import torch
 
 from boojum_tpu.field import goldilocks as ref_gl
+from boojum_tpu.hash import poseidon as ref_poseidon
 from boojum_tpu.prover import device_merkle as ref_dm
 from boojum_tpu_torch.field import goldilocks as gl
 from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+from boojum_tpu_torch.hash import poseidon
 from boojum_tpu_torch.hash import poseidon2 as p2
 
 P = gl.ORDER
@@ -254,6 +257,100 @@ def test_kernel_leaf_and_node_order_match_plain():
              [int(v) for v in cur[:, 2 * j + 1]] + [0] * 4
         assert [canonicalize(e) for e in emulate_permute(st)[:4]] == \
             [int(v) for v in want[:, j]]
+
+
+# ---------------------------------------------------------------------------
+# poseidon.cu (kernel K6, the classic Poseidon of the transcript) in its
+# operation order: lane i holds element i; the MDS sum is rotated so lane i
+# adds v[(i + j) % 12] * 2^EXPS[j] over the 32-bit halves in two u64
+# accumulators; a partial round sums lanes 1..11 from the pre-s-box values
+# and adds lane 0's s-box output times the lane's own power of two
+# ---------------------------------------------------------------------------
+
+
+def _k6_round(s, r):
+    rc, exps = poseidon._RC, poseidon._EXPS
+    full = r < 4 or r >= 26
+    t = [add_canon_lazy(s[i], rc[r * 12 + i]) for i in range(12)]
+    y = [_sbox7(x) for x in t]
+    out = []
+    for lane in range(12):
+        lo = hi = 0
+        for j in range(12):
+            src = (lane + j) % 12
+            v = y[src] if full else (0 if src == 0 else t[src])
+            lo += (v & EPS) << exps[j]
+            hi += (v >> 32) << exps[j]
+        if not full:
+            pow0 = 1 << exps[(12 - lane) % 12]
+            lo += (y[0] & EPS) * pow0
+            hi += (y[0] >> 32) * pow0
+        assert lo < 1 << 52 and hi < 1 << 52  # the u64 accumulators
+        out.append(reduce96((hi << 32) + lo))
+    return out
+
+
+def emulate_k6_permute(st):
+    """`permute_lanes`: lazy in, lazy out."""
+    for r in range(30):
+        st = _k6_round(st, r)
+    return st
+
+
+def emulate_k6_absorb(st, elements):
+    """`absorb_kernel`: the pad, the rate overwritten with lazy inputs, the
+    state lazy between blocks and canonicalized once."""
+    blk = list(elements) + [1]
+    blk += [0] * (-len(blk) % 8)
+    for i in range(0, len(blk), 8):
+        st = emulate_k6_permute(blk[i:i + 8] + st[8:])
+    return [canonicalize(v) for v in st]
+
+
+@pytest.mark.parametrize("kind", ["random", "p_minus_1", "u64_max", "zeros",
+                                  "lazy_random"])
+def test_k6_operation_order_matches_jax_permutation(kind):
+    """K6's operation order on lazy values, canonicalized once, equals the
+    JAX package's Poseidon permutation (its exact scalar twin) mod p."""
+    rng = np.random.default_rng(31)
+    states = {
+        "random": [[int(v) for v in col] for col in _states(32, 3).T],
+        "p_minus_1": [[P - 1] * 12],
+        "u64_max": [[M64] * 12],
+        "zeros": [[0] * 12],
+        "lazy_random": [[int(v) for v in rng.integers(0, M64, 12,
+                                                       dtype=np.uint64,
+                                                       endpoint=True)]
+                        for _ in range(3)],
+    }[kind]
+    for st in states:
+        got = [canonicalize(e) for e in emulate_k6_permute(st)]
+        assert got == ref_poseidon.s_permutation([v % P for v in st])
+
+
+@pytest.mark.parametrize("k", [0, 7, 8, 17])
+def test_k6_absorb_order_matches_plain(k):
+    """The absorb loop (k + 1 counted: k = 7 fills one block with the pad's
+    one), from a lazy state with u64 edge values, equals the plain sponge."""
+    rng = np.random.default_rng(40 + k)
+    st = [int(v) for v in rng.integers(0, P, 12, dtype=np.uint64)]
+    st[9], st[10] = M64, P
+    el = [int(v) for v in rng.integers(0, M64, k, dtype=np.uint64,
+                                       endpoint=True)]
+    want = poseidon.sponge_absorb_plain(
+        gl.from_u64([v % P for v in st]),
+        gl.from_u64(np.asarray(el, np.uint64)))
+    assert emulate_k6_absorb(st, el) == [int(v) for v in gl.to_u64(want)]
+
+
+def test_k6_exponents_match_the_kernel_source():
+    """csrc/poseidon.cu's compile-time MDS exponents are the host table's."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(poseidon.__file__), os.pardir,
+                            "csrc", "poseidon.cu")).read()
+    got = re.search(r"EXPS\[WIDTH\] = \{([^}]*)\}", src).group(1)
+    assert [int(v) for v in got.split(",")] == list(poseidon._EXPS)
 
 
 def test_tree_entries_check_inputs():

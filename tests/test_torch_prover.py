@@ -8,6 +8,8 @@ import importlib
 
 import numpy as np
 import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from boojum_tpu.cs.setup import create_base_setup as ref_create_base_setup
 from boojum_tpu.prover import ProofConfig as RefProofConfig
@@ -18,6 +20,8 @@ from boojum_tpu.verifier import verify
 from boojum_tpu_torch.cs.setup import create_base_setup
 from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                      create_device_setup)
+from boojum_tpu_torch.prover import device_merkle
+from boojum_tpu_torch.prover import device_transcript as dtm
 from boojum_tpu_torch.prover.proof import proof_to_json
 from boojum_tpu_torch.prover.serialization import (load_setup_base,
                                                    setup_base_from_arrays)
@@ -120,6 +124,109 @@ def test_device_transcript_proof_is_byte_identical(both, kind):
     assert prover.witness_program() is None
     assert proof_to_json(proof) == ref_proof_to_json(both["ref_proofs"][kind])
     assert verify(both["ref_art"].vk, proof, kind, "poseidon2")
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the torch ops dispatched while it is on; ``quiet`` > 0 mutes
+    it (inside a sponge call, which counts as one op)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+        self.quiet = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += not self.quiet
+        return func(*args, **(kwargs or {}))
+
+
+def _counted_prove(prover, monkeypatch, device_transcript):
+    """One prove's torch ops, the device transcript's sponge absorb and
+    permute counted as one op each (one kernel launch on the card)."""
+    mode = _OpCount()
+
+    def one_op(fn):
+        def call(*args):
+            mode.ops += 1
+            mode.quiet += 1
+            try:
+                return fn(*args)
+            finally:
+                mode.quiet -= 1
+        return call
+
+    monkeypatch.setitem(dtm._SPONGES, "poseidon",
+                        tuple(one_op(fn) for fn in dtm._SPONGES["poseidon"]))
+    with mode:
+        proof = prover.prove("poseidon", "poseidon2",
+                             device_transcript=device_transcript)
+    monkeypatch.undo()
+    return mode.ops, proof
+
+
+def test_fetch_collector_flushes_once():
+    """`add` (tensors already computed, one or a sequence) and `add_gather`
+    (run at the flush) reach the host in one flush; each callback gets u64
+    arrays of its entry's shapes; a flush with nothing to do fetches
+    nothing."""
+    coll = device_merkle.FetchCollector()
+    got = {}
+    a = torch.arange(6, dtype=torch.int64).reshape(2, 3)
+    b = torch.tensor([-1], dtype=torch.int64)  # the u64 pattern 2^64 - 1
+    coll.add(a, lambda h: got.__setitem__("a", h))
+    coll.add([a, b], lambda h: got.__setitem__("ab", h))
+    coll.add_gather(lambda t, i: t[:, i], (a, torch.tensor([2, 0])),
+                    lambda h: got.__setitem__("g", h))
+    fetches = device_merkle.FETCHES
+    coll.flush()
+    coll.flush()
+    assert device_merkle.FETCHES - fetches == 1
+    assert got["a"].dtype == np.uint64
+    assert got["a"].tolist() == [[0, 1, 2], [3, 4, 5]]
+    assert [x.tolist() for x in got["ab"]] == [[[0, 1, 2], [3, 4, 5]],
+                                               [(1 << 64) - 1]]
+    assert got["g"].tolist() == [[2, 0], [5, 3]]
+
+
+def test_device_transcript_ops_and_one_query_fetch(both, monkeypatch):
+    """A warm prove with the device transcript dispatches at most 1.5 %
+    more torch ops than with the host transcript (its challenges are split
+    once when drawn and its power tables step in one multiply a doubling);
+    in both modes the query phase comes to the host in ONE collector flush,
+    and the proof stays the reference's."""
+    cfg = ProofConfig(**CFG)
+    prover = DeviceProver(both["cs"], both["art"], cfg, device="cpu")
+    prover.prove("poseidon", "poseidon2")  # fills the device caches
+    want = ref_proof_to_json(both["ref_proofs"]["poseidon"])
+    ops = {}
+    for mode in (False, True):
+        fetches = device_merkle.FETCHES
+        ops[mode], proof = _counted_prove(prover, monkeypatch, mode)
+        assert device_merkle.FETCHES - fetches == 1
+        assert proof_to_json(proof) == want
+    assert ops[True] <= 1.015 * ops[False], ops
+
+
+@pytest.fixture(scope="module")
+def unsatisfied():
+    """The small circuit with one variable's value changed after synthesis,
+    and a CPU prover for it."""
+    cs = build_small_circuit("boojum_tpu_torch", np.random.default_rng(11))
+    art = create_device_setup(cs, create_base_setup(cs), ProofConfig(**CFG),
+                              "poseidon2", device="cpu")
+    cs.resolver.set_values(np.asarray([0], np.int64),
+                           np.asarray([12345], np.uint64))
+    return DeviceProver(cs, art, ProofConfig(**CFG), device="cpu")
+
+
+@pytest.mark.parametrize("device_transcript", [False, True])
+def test_unsatisfied_circuit_raises(unsatisfied, device_transcript):
+    """The runtime assertion on the quotient's top coefficient, checked at
+    the evaluations' fetch (host transcript) or at the handoff (device
+    transcript), still stops the prove."""
+    with pytest.raises(AssertionError, match="unsatisfied circuit"):
+        unsatisfied.prove("poseidon", "poseidon2",
+                          device_transcript=device_transcript)
 
 
 def test_setup_base_loads_from_reference_npz(both, tmp_path):
