@@ -1,4 +1,4 @@
-# Copied from boojum_tpu/cs/gates/__init__.py, without the Poseidon gates.
+# Copied from boojum_tpu/cs/gates/__init__.py.
 """Gate library (reference src/cs/gates/, 29 files — built out over rounds)."""
 
 from .arith import (  # noqa: F401
@@ -12,6 +12,8 @@ from .arith import (  # noqa: F401
     UIntXAddGate,
 )
 from .base import Ext2Ops, GateEvaluator, NpOps, TorchOps, TraceView  # noqa: F401
+from .poseidon2_gate import Poseidon2FlattenedGate  # noqa: F401
+from .poseidon_gate import PoseidonFlattenedGate  # noqa: F401
 from .simple import (  # noqa: F401
     BooleanConstraintGate,
     ConditionalSwapGate,

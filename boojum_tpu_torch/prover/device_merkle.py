@@ -1,14 +1,17 @@
-# Port of boojum_tpu/prover/device_merkle.py (the Poseidon2 half) to torch.
-"""Poseidon2 Merkle-cap trees and FRI on the device.
+# Port of boojum_tpu/prover/device_merkle.py to torch (Poseidon2, Blake2s and Keccak-256 trees).
+"""Merkle-cap trees and FRI on the device.
 
 Reference behavior: oracle construction (src/cs/oracle/merkle_tree.rs:78-176)
 and FRI folding (src/cs/implementations/fri/mod.rs:49,362). The leaf hashes
-of a tree are one `pallas_poseidon2.leaf_hashes` call and each node layer one
-`pallas_poseidon2.node_layer` call (on the GPU one launch each of the Hopper
-`poseidon2_leaf_hashes` and `poseidon2_node_layer` kernels); the layers stay
-on the device, and only caps and queried paths cross to the host: the
-query phase's gathers all ride one `FetchCollector` flush, one copy to the
-host and one wait.
+of a Poseidon2 tree are one `pallas_poseidon2.leaf_hashes` call and each
+node layer one `pallas_poseidon2.node_layer` call (on the GPU one launch
+each of the Hopper `poseidon2_leaf_hashes` and `poseidon2_node_layer`
+kernels); a Blake2s or Keccak-256 tree (src/cs/oracle/mod.rs:179, :247)
+likewise takes one `device_bytes_hash.leaf_hashes` call and one
+`node_layer` call a layer (kernels K8 and K9). The layers stay on the
+device, and only caps and queried paths cross to the host: the query
+phase's gathers all ride one `FetchCollector` flush, one copy to the host
+and one wait.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from ..field import extension as ext2
 from ..field import goldilocks as gl
 from ..field.goldilocks import MULTIPLICATIVE_GENERATOR, ORDER
+from ..hash import device_bytes_hash as dbh
 from ..hash.pallas_poseidon2 import leaf_hashes, node_layer
 from ..utils import npgl
 from .device import upload
@@ -97,13 +101,19 @@ def build_device_tree(cols: torch.Tensor, cap_size: int) -> "DeviceTree":
 
 class DeviceTree:
     """Merkle-cap tree whose layers stay on the device: leaves (4, m), then
-    each node layer, the last being the cap (AlgebraicMerkleTree's
-    get_cap/get_proof interface)."""
+    each node layer, the last being the cap (the get_cap/get_proof
+    interface of the reference's host trees)."""
 
     def __init__(self, layers):
         self.layers = layers
         self._cap_host = None
         self._path_cache = {}
+
+    @staticmethod
+    def _nodes(arr: np.ndarray) -> list:
+        """Host copy (words, n) of n nodes -> the n nodes as the host tree
+        holds them: tuples of 4 field elements."""
+        return [tuple(int(x) for x in arr[:, j]) for j in range(arr.shape[1])]
 
     def get_cap(self):
         if self._cap_host is None:
@@ -111,9 +121,8 @@ class DeviceTree:
         return self._cap_host
 
     def set_cap_host(self, arr: np.ndarray):
-        """Keep the cap from its host u64 copy (4, cap) fetched elsewhere."""
-        self._cap_host = [tuple(int(arr[i, j]) for i in range(4))
-                          for j in range(arr.shape[1])]
+        """Keep the cap from its host u64 copy fetched elsewhere."""
+        self._cap_host = self._nodes(arr)
 
     def prefetch_proofs(self, leaf_indices, collector=None):
         """Gather every queried leaf and sibling path: one gather, fetched
@@ -128,14 +137,12 @@ class DeviceTree:
             parts = [self.layers[level][:, (idx >> level) ^ 1]
                      for level in range(depth)]
             parts.append(self.layers[0][:, idx])
-            return torch.stack(parts)  # (depth + 1, 4, q)
+            return torch.stack(parts)  # (depth + 1, words, q)
 
         def ingest(arr):
             for qi, leaf_idx in enumerate(idxs):
-                leaf = tuple(int(arr[depth, i, qi]) for i in range(4))
-                path = [tuple(int(arr[level, i, qi]) for i in range(4))
-                        for level in range(depth)]
-                self._path_cache[leaf_idx] = (leaf, path)
+                nodes = self._nodes(arr[:, :, qi].T)
+                self._path_cache[leaf_idx] = (nodes[depth], nodes[:depth])
 
         coll, alone = _flush_alone(collector)
         coll.add_gather(gather, (idx,), ingest)
@@ -146,6 +153,47 @@ class DeviceTree:
         if int(idx) not in self._path_cache:
             self.prefetch_proofs([idx])
         return self._path_cache[int(idx)]
+
+
+def build_device_bytes_tree(cols: torch.Tensor, cap_size: int,
+                            algo: str) -> "DeviceBytesTree":
+    """Blake2s or Keccak-256 Merkle-cap tree of leaf columns (k, m): the leaf
+    digests, then each node layer down to the cap; digests equal the
+    reference's host `BytesMerkleTree`'s."""
+    cur = dbh.leaf_hashes(cols, algo)
+    layers = [cur]
+    while cur.shape[1] > cap_size:
+        cur = dbh.node_layer(cur, algo)
+        layers.append(cur)
+    return DeviceBytesTree(layers, algo)
+
+
+class DeviceBytesTree(DeviceTree):
+    """Byte-digest Merkle-cap tree whose (8, m) word-plane layers stay on the
+    device; caps and paths cross to the host as 32-byte digests."""
+
+    def __init__(self, layers, algo: str):
+        super().__init__(layers)
+        self.algo = algo
+
+    @staticmethod
+    def _nodes(arr: np.ndarray) -> list:
+        return dbh.digests_to_bytes(arr)
+
+
+# tree hashers with a device tree; the reference's host tree for "poseidon"
+# (boojum_tpu/prover/device_merkle.py:332) is not ported
+TREE_HASHERS = ("poseidon2", "blake2s", "keccak256")
+
+
+def build_any_device_tree(cols: torch.Tensor, cap_size: int, hasher: str):
+    """The Merkle-cap tree of leaf columns (k, m) by tree hasher: Poseidon2
+    (`DeviceTree`), or Blake2s / Keccak-256 (`DeviceBytesTree`)."""
+    if hasher == "poseidon2":
+        return build_device_tree(cols, cap_size)
+    if hasher in ("blake2s", "keccak256"):
+        return build_device_bytes_tree(cols, cap_size, hasher)
+    raise NotImplementedError("the %r tree hasher is not ported" % (hasher,))
 
 
 class DeviceFlatOracle:
@@ -217,21 +265,24 @@ def _fold(c0, c1, roots, chs, cosets):
     return c0, c1
 
 
-def _commit_layer(c0, c1, k: int, cap_size: int) -> DeviceFlatOracle:
+def _commit_layer(c0, c1, k: int, cap_size: int,
+                  hasher: str) -> DeviceFlatOracle:
     """Leaf columns (2·2^k, size/2^k) of a flat layer: leaf i = [c0 chunk i,
     c1 chunk i]; then its tree."""
     e = 1 << k
     tree_size = c0.shape[0] // e
     cols = torch.cat([c0.reshape(tree_size, e).T, c1.reshape(tree_size, e).T])
-    return DeviceFlatOracle(c0, c1, e, build_device_tree(cols, cap_size))
+    return DeviceFlatOracle(c0, c1, e,
+                            build_any_device_tree(cols, cap_size, hasher))
 
 
 def do_fri_device(h, transcript, schedule: list[int], lde_factor: int,
-                  cap_size: int, roots: torch.Tensor):
+                  cap_size: int, roots: torch.Tensor, hasher: str):
     """FRI over the DEEP polynomial h = (c0, c1) flat tensors: commit each
     layer, absorb its cap, fold by 2^k with the transcript's challenge, and
     interpolate the final layer on the host. ``roots`` is the bitreversed
-    inverse-root table of the full domain (`fri._inverse_roots_bitreversed`).
+    inverse-root table of the full domain (`fri._inverse_roots_bitreversed`);
+    each layer's tree is hashed with ``hasher``.
     Byte-identical to the reference's fri.do_fri on the same input.
 
     Under a device transcript the caps and challenges stay on the device
@@ -245,7 +296,7 @@ def do_fri_device(h, transcript, schedule: list[int], lde_factor: int,
     cur0, cur1 = h
     coset_inv = pow(MULTIPLICATIVE_GENERATOR, ORDER - 2, ORDER)
     for stage, k in enumerate(schedule):
-        oracle = _commit_layer(cur0, cur1, k, cap_size)
+        oracle = _commit_layer(cur0, cur1, k, cap_size, hasher)
         if is_dev:
             transcript.witness_merkle_tree_cap_dev(oracle.tree.layers[-1])
         else:

@@ -8,18 +8,22 @@ the reference `DeviceProver`'s), with every column-sized array a tensor on
 permutation grand product, lookup A/B polys); the quotient over the flat
 (qd·n) domain; its coset iNTT; evaluations at z, z·ω and 0; DEEP; FRI; and
 the query openings. NTTs run through the `ntt_stage` kernel and every Merkle
-tree through the `poseidon2_leaf_hashes` and `poseidon2_node_layer` kernel
-entries on the GPU.
+tree through the leaf and node entries of the tree hasher's kernel on the
+GPU: `poseidon2` (K2), `blake2s` (K8) or `keccak256` (K9). With
+``pow_bits > 0`` the host grinds the proof of work after FRI
+(`prover/pow.py`), as the reference does.
 
 As in the reference `DeviceProver`, the witness oracle comes from the device
 witness program (`device_witness.DeviceWitnessProgram`, its SHA-256
 compression chain on kernel K5) whenever the circuit supports it, and the
 challenges from the device transcript (`device_transcript.DeviceTranscript`,
-its sponge on kernel K6) by default on a CUDA device: every challenge stays
-on the device until one handoff to the host transcript before the queries.
+its sponge on kernel K6) by default on a CUDA device, under the reference's
+condition (an algebraic transcript and the poseidon2 tree hasher): every
+challenge stays on the device until one handoff to the host transcript
+before the queries. The Blake2s and Keccak-256 transcripts run on the host.
 
 Not ported, and raising NotImplementedError: general-purpose lookup mode,
-`pow_bits > 0`, and tree hashers other than poseidon2.
+and the poseidon (not poseidon2) tree hasher.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ from ..ntt import ntt
 from ..transcript import make_transcript
 from ..utils import npgl
 from . import device as dops
-from .device_merkle import FetchCollector, do_fri_device, finish_fri
+from . import pow as pow_mod
+from .device_merkle import (TREE_HASHERS, FetchCollector, do_fri_device,
+                            finish_fri)
 from .device_transcript import (DeviceTranscript, ext_pow_table_dev,
                                 prepare_ext)
 from .device_witness import DeviceWitnessProgram
@@ -62,11 +68,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_supported(cs, proof_config: ProofConfig, hasher: str):
-    if hasher != "poseidon2":
+def _check_supported(cs, hasher: str):
+    if hasher not in TREE_HASHERS:
         raise NotImplementedError("tree hasher %r is not ported" % hasher)
-    if proof_config.pow_bits > 0:
-        raise NotImplementedError("proof of work (pow_bits > 0) is not ported")
     lp = cs.lookup_parameters
     if lp.lookup_is_allowed and not lp.is_specialized:
         raise NotImplementedError("general-purpose lookup mode is not ported")
@@ -77,7 +81,7 @@ def create_device_setup(cs, setup_base, proof_config: ProofConfig,
     """Setup oracle (sigmas ++ constants ++ table columns) on ``device`` and
     the VK; the cap equals the reference's."""
     dev = resolve_device(device)
-    _check_supported(cs, proof_config, hasher)
+    _check_supported(cs, hasher)
     cols = np.concatenate([setup_base.copy_permutation_polys,
                            setup_base.constant_columns,
                            setup_base.lookup_tables_columns], axis=0)
@@ -137,14 +141,17 @@ class DeviceProver:
         """``device_transcript``: None takes the device transcript on a CUDA
         device and the host one on the CPU (the reference's rule, fuse =
         off the CPU); True takes it anywhere (on the CPU through its plain
-        versions); False keeps the host transcript. ``verbose`` prints the
+        versions); False keeps the host transcript. The device transcript
+        needs an algebraic ``transcript_kind`` and the poseidon2
+        ``hasher``; the byte transcripts always run on the host (True
+        raises ValueError there). ``verbose`` prints the
         stage split (each stage ends in a device sync); ``on_stage(label)``,
         if given, is called at the end of each stage of that split, after
         the sync and outside the stages' times (`chip_smoke.py` profiles
         each stage through it)."""
         cs = self.cs
         cfg = self.cfg
-        _check_supported(cs, cfg, hasher)
+        _check_supported(cs, hasher)
         dev = self.device
         ops = TorchOps(dev)
         sb = self.artifacts.setup_base
@@ -182,10 +189,13 @@ class DeviceProver:
                                 tree_lde=tree_lde, monomials=monomials,
                                 device=dev)
 
-        eligible = transcript_kind in ("poseidon", "poseidon2")
+        eligible = (transcript_kind in ("poseidon", "poseidon2")
+                    and hasher == "poseidon2")
         if device_transcript and not eligible:
             raise ValueError("the device transcript needs the poseidon or "
-                             "poseidon2 transcript, not %r" % transcript_kind)
+                             "poseidon2 transcript and the poseidon2 tree "
+                             "hasher, not %r and %r"
+                             % (transcript_kind, hasher))
         use_dev_ts = eligible and (dev.type == "cuda"
                                    if device_transcript is None
                                    else bool(device_transcript))
@@ -610,9 +620,8 @@ class DeviceProver:
         new_pow_bits, num_queries, schedule, _ = compute_fri_schedule(
             cfg.security_level, cap_size, cfg.pow_bits,
             fri_lde.bit_length() - 1, log_n)
-        assert new_pow_bits == 0
         fri_result = do_fri_device(h.a, transcript, schedule, fri_lde,
-                                   cap_size, tables["roots"])
+                                   cap_size, tables["roots"], hasher)
         del h
         fri_oracles = [fri_result.base_oracle] + fri_result.intermediate_oracles
         if use_dev_ts:
@@ -637,7 +646,19 @@ class DeviceProver:
                 o.tree.set_cap_host(cap)
         stage("FRI")
 
-        # -- stage 12: queries (no PoW: pow_bits == 0) -------------------------
+        # -- stage 11: PoW, ground on the host (the reference's order) --------
+        pow_challenge = 0
+        if new_pow_bits > 0:
+            challenges = transcript.get_multiple_challenges(4)
+            grind = {"keccak256": pow_mod.keccak256_pow,
+                     "poseidon2": pow_mod.poseidon2_pow,
+                     }.get(cfg.pow_hash, pow_mod.blake2s_pow)
+            pow_challenge = grind(challenges, new_pow_bits)
+            transcript.witness_field_elements(
+                [pow_challenge & 0xFFFFFFFF, pow_challenge >> 32])
+            stage("PoW")
+
+        # -- stage 12: queries ---------------------------------------------------
         max_needed_bits = (n * fri_lde).bit_length() - 1
         num_inner_bits = max_needed_bits - (fri_lde.bit_length() - 1)
         bools = _BoolsBuffer(max_needed_bits)
@@ -688,5 +709,5 @@ class DeviceProver:
             fri_intermediate_oracles_caps=[o.get_cap()
                                            for o in fri_result.intermediate_oracles],
             queries_per_fri_repetition=rounds,
-            pow_challenge=0,
+            pow_challenge=pow_challenge,
         )

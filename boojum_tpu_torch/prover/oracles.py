@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from . import device as dops
-from .device_merkle import _flush_alone, build_device_tree
+from .device_merkle import TREE_HASHERS, _flush_alone, build_any_device_tree
 from .proof import OracleQuery
 
 
@@ -25,9 +25,9 @@ class DeviceOracle:
 
     def __init__(self, lagrange_cols, lde_factor: int, cap_size: int,
                  hasher: str, device, tree_lde: int = None, monomials=None):
-        if hasher != "poseidon2":
-            raise NotImplementedError(
-                "only the poseidon2 tree hasher is ported, not %r" % hasher)
+        if hasher not in TREE_HASHERS:
+            raise NotImplementedError("the %r tree hasher is not ported"
+                                      % (hasher,))
         if monomials is None:
             if not isinstance(lagrange_cols, torch.Tensor):
                 lagrange_cols = dops.to_device_cols(lagrange_cols, device)
@@ -44,8 +44,8 @@ class DeviceOracle:
         self.flat_t = lde.reshape(lde_factor * self.n, self.num_polys).T \
             .contiguous()
         del lde
-        self.tree = build_device_tree(self.flat_t[:, :self.tree_lde * self.n],
-                                      cap_size)
+        self.tree = build_any_device_tree(
+            self.flat_t[:, :self.tree_lde * self.n], cap_size, hasher)
 
     def flat(self, poly: int, num_cosets: int) -> torch.Tensor:
         """Poly ``poly`` over the first ``num_cosets`` cosets, flat (c·n,)."""

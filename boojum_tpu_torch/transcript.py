@@ -1,4 +1,4 @@
-# Copied from boojum_tpu/transcript.py (the algebraic transcripts only).
+# Copied from boojum_tpu/transcript.py.
 """Fiat-Shamir transcripts (host-side, exact).
 
 Reference behavior: src/cs/implementations/transcript.rs —
@@ -14,8 +14,11 @@ identity with the reference) matters, speed does not.
 
 from __future__ import annotations
 
+import hashlib
+
 from .field.goldilocks import ORDER
 from .hash import poseidon, poseidon2
+from .hash.keccak import keccak256
 from .hash.sponge import RATE, STATE_WIDTH
 
 
@@ -60,10 +63,78 @@ class AlgebraicTranscript:
         return [self.get_challenge() for _ in range(n)]
 
 
+class _BytesTranscript:
+    """Shared logic of Blake2s/Keccak256 transcripts (reseed-by-finalize)."""
+
+    IS_ALGEBRAIC = False
+
+    def __init__(self):
+        self.fed = b""  # bytes since last reset
+        self.buffer = bytearray()
+        self.available = bytearray()
+
+    def _digest(self, data: bytes) -> bytes:
+        raise NotImplementedError
+
+    def witness_field_elements(self, els):
+        for e in els:
+            self.buffer += (int(e) % ORDER).to_bytes(8, "little")
+
+    def witness_merkle_tree_cap(self, cap):
+        for el in cap:
+            assert isinstance(el, (bytes, bytearray)) and len(el) == 32
+            self.buffer += el
+
+    def _reseed(self):
+        output = self._digest(self.fed)
+        self.fed = output  # finalize_reset + update(output)
+        self.available = bytearray(output)
+
+    def get_challenge(self) -> int:
+        if self.buffer:
+            self.fed += bytes(self.buffer)
+            self.buffer.clear()
+            self._reseed()
+        if self.available:
+            assert len(self.available) % 8 == 0
+            chunk = bytes(self.available[:8])
+            del self.available[:8]
+            return int.from_bytes(chunk, "little") % ORDER
+        self._reseed()
+        return self.get_challenge()
+
+    def get_challenge_bytes(self, num_bytes: int) -> bytes:
+        if self.buffer:
+            self.fed += bytes(self.buffer)
+            self.buffer.clear()
+            self._reseed()
+        if len(self.available) >= num_bytes:
+            out = bytes(self.available[:num_bytes])
+            del self.available[:num_bytes]
+            return out
+        self._reseed()
+        return self.get_challenge_bytes(num_bytes)
+
+    def get_multiple_challenges(self, n: int) -> list[int]:
+        return [self.get_challenge() for _ in range(n)]
+
+
+class Blake2sTranscript(_BytesTranscript):
+    def _digest(self, data: bytes) -> bytes:
+        return hashlib.blake2s(data, digest_size=32).digest()
+
+
+class Keccak256Transcript(_BytesTranscript):
+    def _digest(self, data: bytes) -> bytes:
+        return keccak256(data)
+
+
 def make_transcript(kind: str):
-    """kind in {poseidon, poseidon2}; the byte transcripts are not ported."""
+    """kind in {poseidon, poseidon2, blake2s, keccak256}."""
     if kind in ("poseidon", "poseidon2"):
         return AlgebraicTranscript(kind)
-    if kind in ("blake2s", "keccak256"):
-        raise NotImplementedError("the %s transcript is not ported" % kind)
+    if kind == "blake2s":
+        return Blake2sTranscript()
+    if kind == "keccak256":
+        return Keccak256Transcript()
     raise ValueError(kind)

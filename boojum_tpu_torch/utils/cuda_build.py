@@ -20,7 +20,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 KERNELS = ("ntt_stage", "poseidon2", "ntt_small", "sha256_witness",
-           "poseidon")
+           "poseidon", "blake2s", "keccak")
 
 _LIBS: dict = {}  # kernel handles: name -> ctypes.CDLL
 
@@ -54,6 +54,15 @@ _SIGNATURES = {
         # state, elements, k, out state, round constants, stream
         "poseidon_absorb": [_P, _P, _LL, _P, _P, _P],
         "poseidon_permute": [_P, _P, _P, _P],  # state, out, constants, stream
+    },
+    # cols, out, k, m, row stride of cols, stream; cur, out, m, stream
+    "blake2s": {
+        "blake2s_leaf_hashes": [_P, _P, _I, _LL, _LL, _P],
+        "blake2s_node_layer": [_P, _P, _LL, _P],
+    },
+    "keccak": {
+        "keccak_leaf_hashes": [_P, _P, _I, _LL, _LL, _P],
+        "keccak_node_layer": [_P, _P, _LL, _P],
     },
 }
 

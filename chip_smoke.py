@@ -9,10 +9,13 @@ at every template instance (R 128 / 256 x forward / inverse x twiddle mode
 `ntt_small` at every template instance (log n 0 .. 12 x forward / forward
 with the cross twiddle / inverse) at two ragged batches and at the NTT
 path's two shapes with its real twiddle tables, `sha256_witness` at 1, 3,
-129 (the flagship) and 1000 chained blocks, and the Poseidon sponge
+129 (the flagship) and 1000 chained blocks, the Poseidon sponge
 (`poseidon_absorb` at 0 .. 130 elements from several states, and
-`poseidon_permute`); every shape it times is held against the plain version
-first. Then it drives three paths, each with the launch counts set to 0 just
+`poseidon_permute`), and the Blake2s (K8) and Keccak-256 (K9) tree hashes
+(`*_leaf_hashes` at k = 1, 8, 16, 17, 34, 93 elements a leaf, the block
+boundaries of both hashes, and on a strided view; `*_node_layer` at m = 2,
+32, 1000, 2^19); every shape it times is held against the plain version
+first. Then it drives these paths, each with the launch counts set to 0 just
 before it and read just after:
 
 - the flagship: proves the 8 kB SHA-256 circuit (2^16 rows, LDE 8, cap 16,
@@ -22,8 +25,8 @@ before it and read just after:
   `scripts/torch_reference_digest.py` from the JAX package). The default
   prove must take the device witness program (`sha256_witness` once a
   prove, `materialize_witness_columns` never) and the device transcript
-  (`poseidon_sponge` more than once a prove). Five warm proves with the
-  device transcript alternate with five with the host transcript
+  (`poseidon_sponge` more than once a prove). Three warm proves with the
+  device transcript alternate with three with the host transcript
   (`device_transcript=False`), which must give the same digest; both sets
   of times are printed. Each mode's stage split comes from synced proves
   alternated with the other mode's, and each stage's kernel count and
@@ -34,7 +37,20 @@ before it and read just after:
   synchronize) and 12 with the host one. It records the kernel launches of one
   prove by shape, holds each shape bit-exactly against its plain version,
   times it and prints, per kernel, the sum over a prove of launches x time
-  and of launches x (time - bound);
+  and of launches x (time - bound) (likewise the byte hashes' shapes of a
+  Blake2s and a Keccak-256 prove);
+- the non-recursive flagship: the same circuit in the reference's own
+  non-recursive configuration, the Blake2s transcript (on the host) and
+  Blake2s trees (K8), LDE 8, cap 16, security 100, no PoW: setup, one cold
+  and two warm proves, each proof's digest equal to
+  `boojum_tpu_torch/data/flagship_blake2s_proof_digest.json`, the stage
+  split of a synced prove, and at most 12 synchronizing calls in a warm
+  prove; then one Keccak-256 prove (K9) against
+  `flagship_keccak256_proof_digest.json`. Both must launch their tree
+  kernels, `ntt_stage` and `sha256_witness`, and no plain version;
+- the verifier: the port's `verify` (host code, no launch) accepts the
+  Poseidon, Blake2s and Keccak-256 flagship proofs, each timed, and rejects
+  the Blake2s proof with one witness leaf element flipped;
 - the standalone NTT: runs `pallas_ntt.ntt_any` at (2^24, 8), whose output
   must equal the digest in `boojum_tpu_torch/data/ntt_2e24_digest.json`
   (made by `scripts/torch_reference_ntt_digest.py`) and the radix-256 route
@@ -81,14 +97,30 @@ P2_REPLACES = "boojum_tpu/hash/pallas_poseidon2.py:43"
 POSEIDON_MULS = P2_MULS
 K5_REPLACES = "boojum_tpu/gadgets/sha256.py:545"
 # warm flagship proves in each transcript mode, alternated
-WARM_ROUNDS = 5
+WARM_ROUNDS = 3
 # synced proves a mode, alternated, for the stage split of each mode
-PROFILE_ROUNDS = 2
+PROFILE_ROUNDS = 1
 # most synchronizing calls a warm prove may make: the device transcript's
 # handoff, the query phase's one fetch and the closing synchronize; the
 # host transcript adds its cap reads, the evaluations and the final layer
 MAX_SYNCS = {"device": 3, "host": 12}
 K6_REPLACES = "boojum_tpu/prover/device_transcript.py:87"
+# the compiled JAX loops that K8 (Blake2s) and K9 (Keccak-256) replace
+BYTE_REPLACES = {
+    ("blake2s", "leaf"): "boojum_tpu/hash/device_bytes_hash.py:123",
+    ("blake2s", "node"): "boojum_tpu/hash/device_bytes_hash.py:149",
+    ("keccak256", "leaf"): "boojum_tpu/hash/device_bytes_hash.py:300",
+    ("keccak256", "node"): "boojum_tpu/hash/device_bytes_hash.py:309"}
+BYTE_SOURCES = {"blake2s": "boojum_tpu_torch/csrc/blake2s.cu",
+                "keccak256": "boojum_tpu_torch/csrc/keccak.cu"}
+BYTE_LIBS = {"blake2s": "blake2s", "keccak256": "keccak"}
+# H100 integer pipe: 64 lanes per SM per clock (the rate the IMAD bound
+# above uses) for the ALU pipe (the byte hashes' adds, xors, funnel shifts)
+# and for the FMA pipe (IMAD) each; an SM issues 128 thread-instructions a
+# clock in all
+H100_INT_PER_S = H100_IMAD_PER_S
+# warm proves of the Blake2s configuration
+BYTE_WARM_PROVES = 2
 # Dependency-chain model of the two sequential kernels (not a measured
 # bound): a SHA-256 round's critical path, e -> s1 -> tmp1 -> tmp1w -> te,
 # is about 8 dependent integer instructions; a Poseidon round's about 3
@@ -572,12 +604,218 @@ def check_poseidon_sponge(rng):
 
 
 # ---------------------------------------------------------------------------
+# K8 (Blake2s) and K9 (Keccak-256)
+# ---------------------------------------------------------------------------
+
+# Blake2s message blocks and Keccak-256 absorbs of a leaf of k elements
+BYTE_BLOCKS = {"blake2s": lambda k: max(-(-k // 8), 1),
+               "keccak256": lambda k: k // 17 + 1}
+# (algo, entry) -> {"fixed": counts, "per_block": counts}, from SASS; counts
+# by pipe: "alu" integer-pipe instructions but IMAD, "fma" IMAD (the FMA
+# pipe), "all" every instruction (the issue slots)
+BYTE_SASS = {}
+PIPES = ("alu", "fma", "all")
+
+
+def pipe_counts(instrs, lo=None, hi=None):
+    """Thread-instructions of a kernel's SASS (or of its address range
+    [lo, hi]) by the pipe that issues them; uniform-datapath instructions
+    run once a warp and count only as issue slots."""
+    from boojum_tpu_torch.utils import cuda_build
+    out = dict(alu=0, fma=0, all=0)
+    for addr, op, _ in instrs:
+        if lo is not None and not lo <= addr <= hi:
+            continue
+        base = op.split(".")[0]
+        out["all"] += 1
+        if base == "IMAD":
+            out["fma"] += 1
+        elif base in cuda_build.INT_OPCODES and not base.startswith("U"):
+            out["alu"] += 1
+    return out
+
+
+def byte_sass():
+    """SASS of the four byte-hash entries, split into a fixed part and a
+    part per message block (a Blake2s compression, a Keccak-f permutation)
+    by the kernels' loops: the Blake2s leaf kernel's block loop holds one
+    unrolled compression, its node kernel is straight-line; the Keccak
+    kernels' innermost loop is the 24-trip round loop, which the leaf
+    kernel's block loop holds."""
+    from boojum_tpu_torch.utils import cuda_build
+
+    def comb(a, b, kb=1):
+        return {p: a[p] + kb * b[p] for p in PIPES}
+
+    for algo, lib in BYTE_LIBS.items():
+        for kname, instrs in cuda_build.sass(cuda_build._lib_path(lib)).items():
+            entry = "leaf" if "leaf_kernel" in kname else "node"
+            s = cuda_build.sass_summary(instrs)
+            loops = [pipe_counts(instrs, lp["start"], lp["end"]) for lp in
+                     sorted(s["loops"], key=lambda lp: lp["end"] - lp["start"])]
+            whole = pipe_counts(instrs)
+            zero = dict(alu=0, fma=0, all=0)
+            if algo == "blake2s" and entry == "leaf" and len(loops) == 1:
+                fixed, per = comb(whole, loops[0], -1), loops[0]
+            elif algo == "blake2s" and entry == "node" and not loops:
+                fixed, per = zero, whole
+            elif algo == "keccak256" and entry == "leaf" and len(loops) == 2:
+                inner, outer = loops
+                fixed, per = comb(whole, outer, -1), comb(outer, inner, 23)
+            elif algo == "keccak256" and entry == "node" and len(loops) == 1:
+                fixed, per = comb(whole, loops[0], -1), comb(zero, loops[0], 24)
+            else:
+                raise AssertionError("sass %s/%s: %d loops, not the kernel's "
+                                     "structure" % (algo, entry, len(loops)))
+            BYTE_SASS[(algo, entry)] = dict(fixed=fixed, per_block=per)
+            log("sass %s %s_kernel: %d instructions, %d integer-pipe, %d "
+                "loops; per %s %s, fixed %s" % (
+                    lib, entry, s["total"], s["integer"], len(loops),
+                    "compression" if algo == "blake2s" else "permutation",
+                    json.dumps(per), json.dumps(fixed)))
+
+
+def byte_algo_ops(algo, shape):
+    """The 32-bit instructions the hash itself needs for one launch, from
+    the algorithm, not the kernel: (ALU-only, either pipe). Xors, rotates
+    (funnel shifts or byte permutes) and Keccak's chi (one LOP3) issue only
+    on the ALU pipe; an add can also issue as IMAD on the FMA pipe. Blake2s
+    compression: 80 G functions of 4 xors, 4 rotates and 4 adds (a + b + m
+    one three-input add), and the feed-forward's 8 three-input xors.
+    Keccak-f on 64-bit lanes as two 32-bit halves, a round: the column
+    parities (5 lanes x 2 halves x 2 three-input xors), the rotate by 1 of
+    each parity (5 x 2 funnel shifts), theta's xor into every lane with
+    D unformed (25 x 2 three-input xors), the 24 rho rotates (none by 0 or
+    32: 24 x 2 funnel shifts), chi (25 x 2), iota (one xor a nonzero half of
+    the round constant); a leaf absorbs its lanes after the first block with
+    one xor a half. The counter, the flags and the pad are constants or
+    warp-uniform and are not counted. shape: ("leaf", k, m) or ("node",
+    m)."""
+    from boojum_tpu_torch.hash.keccak import _RC
+    if algo == "blake2s":
+        blocks = BYTE_BLOCKS[algo](shape[1]) if shape[0] == "leaf" else 1
+        alu, either = blocks * (80 * 8 + 8), blocks * 80 * 4
+    else:
+        iota = sum((rc & 0xFFFFFFFF != 0) + (rc >> 32 != 0) for rc in _RC)
+        perm = 24 * (20 + 10 + 50 + 48 + 50) + iota
+        if shape[0] == "leaf":
+            k = shape[1]
+            alu = BYTE_BLOCKS[algo](k) * perm + 2 * max(k - 17, 0)
+        else:
+            alu = perm
+        either = 0
+    hashes = shape[2] if shape[0] == "leaf" else shape[1] // 2
+    return hashes * alu, hashes * either
+
+
+def byte_bound(algo, shape):
+    """Least time for one launch: the bytes (each input element read once,
+    each 32-byte digest written, or read as a child, once) over the memory
+    rate, or the hash's own instructions (`byte_algo_ops`) at the card's
+    rates: 64 thread-instructions a clock on an SM for the ALU pipe, 128
+    issue slots in all, whichever takes longest. shape: ("leaf", k, m) or
+    ("node", m)."""
+    if shape[0] == "leaf":
+        k, m = shape[1:]
+        nbytes = k * m * 8 + m * 32
+    else:
+        m = shape[1]
+        nbytes = m * 32 + (m // 2) * 32
+    alu, either = byte_algo_ops(algo, shape)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = max(alu, (alu + either) / 2) / H100_INT_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def byte_sass_ms(algo, shape):
+    """A diagnostic beside the bound, not a bound: the time the kernel's own
+    SASS (`byte_sass`: its address arithmetic, selects and the compiler's
+    split between the pipes included) takes at the same issue rates, the
+    FMA pipe also at 64 a clock."""
+    if shape[0] == "leaf":
+        hashes, blocks = shape[2], BYTE_BLOCKS[algo](shape[1])
+    else:
+        hashes, blocks = shape[1] // 2, 1
+    c = BYTE_SASS[(algo, shape[0])]
+    per_hash = {p: c["fixed"][p] + blocks * c["per_block"][p] for p in PIPES}
+    return hashes * max(per_hash["alu"], per_hash["fma"],
+                        per_hash["all"] / 2) / H100_INT_PER_S * 1e3
+
+
+def byte_input(rng, shape):
+    import numpy as np
+    from boojum_tpu_torch.field import goldilocks as gl
+    if shape[0] == "leaf":
+        return rand_field(rng, shape[1:])
+    return gl.from_u64(rng.integers(0, 1 << 32, (8, shape[1]),
+                                    dtype=np.uint64), "cuda")
+
+
+def time_byte(rng, algo, shape, plain=False):
+    """A K8 / K9 entry at one shape: bit-equal to its plain version, then
+    timed."""
+    from boojum_tpu_torch.hash import device_bytes_hash as dbh
+    x = byte_input(rng, shape)
+    fn = dbh.leaf_hashes if shape[0] == "leaf" else dbh.node_layer
+    plain_fn = dbh._PLAIN[algo][0 if shape[0] == "leaf" else 1]
+    err = require_equal(fn(x, algo), plain_fn(x), "%s %s" % (algo, shape))
+    res = dict(err=err, ms=cuda_ms(lambda: fn(x, algo), 20))
+    if plain:
+        res["plain_ms"] = cuda_ms(lambda: plain_fn(x), 1)
+    res["bound_ms"], res["bound_by"] = byte_bound(algo, shape)
+    res["sass_ms"] = byte_sass_ms(algo, shape)
+    log("%s %s %s: bit-equal, %.4f ms kernel%s, bound %.4f ms (%s), %.1f%% "
+        "of bound; its SASS at the issue rates %.4f ms" % (
+            algo, shape[0], shape[1:], res["ms"],
+            ", %.2f ms plain" % res["plain_ms"] if plain else "",
+            res["bound_ms"], res["bound_by"],
+            100 * res["bound_ms"] / res["ms"], res["sass_ms"]))
+    return res
+
+
+def check_bytes_hash(rng):
+    """K8 and K9: every entry bit-equal to its plain version at the
+    block-boundary widths (k = 8, 16: whole Blake2s blocks; 17, 34: the
+    Keccak pad in a block of its own) on a small m, on a strided view, and
+    at the shapes of the rows, (93, 2^19) leaves (the flagship's witness
+    oracle) and m = 2^19 nodes, timed with their plain versions. Returns
+    {entry name: (largest error, timing of the row's shape)}."""
+    out = {}
+    for algo in BYTE_LIBS:
+        from boojum_tpu_torch.hash import device_bytes_hash as dbh
+        errs = []
+        for k in (1, 8, 16, 17, 34, 93):
+            x = rand_field(rng, (k, 1000 + k))
+            errs.append(require_equal(dbh.leaf_hashes(x, algo),
+                                      dbh._PLAIN[algo][0](x),
+                                      "%s leaf k=%d" % (algo, k)))
+        view = rand_field(rng, (17, 4096))[:, :2048]
+        errs.append(require_equal(dbh.leaf_hashes(view, algo),
+                                  dbh._PLAIN[algo][0](view),
+                                  "%s leaf on a strided view" % algo))
+        t = time_byte(rng, algo, ("leaf", 93, 1 << 19), plain=True)
+        out["%s_leaf_hashes" % algo] = (max(errs + [t["err"]]), t)
+        errs = []
+        for m in (2, 32, 1000):
+            x = byte_input(rng, ("node", m))
+            errs.append(require_equal(dbh.node_layer(x, algo),
+                                      dbh._PLAIN[algo][1](x),
+                                      "%s node m=%d" % (algo, m)))
+        t = time_byte(rng, algo, ("node", 1 << 19), plain=True)
+        out["%s_node_layer" % algo] = (max(errs + [t["err"]]), t)
+        log("%s: leaf hashes bit-equal at k = 1, 8, 16, 17, 34, 93 and a "
+            "strided view; node layer at m = 2, 32, 1000, 2^19" % algo)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # paths
 # ---------------------------------------------------------------------------
 
 
 def reset_counts():
     from boojum_tpu_torch.gadgets import sha256_witness as sw
+    from boojum_tpu_torch.hash import device_bytes_hash as dbh
     from boojum_tpu_torch.hash import pallas_poseidon2 as pp
     from boojum_tpu_torch.hash import poseidon
     from boojum_tpu_torch.ntt import mxu_ntt
@@ -589,12 +827,17 @@ def reset_counts():
             mod.SHAPES.clear()
     pp.LEAF_LAUNCHES = pp.NODE_LAUNCHES = 0
     pn.TORCH_TWIDDLE_MULS = 0
+    dbh.LEAF_LAUNCHES.clear()
+    dbh.NODE_LAUNCHES.clear()
+    dbh.SHAPES.clear()
+    dbh.PLAIN_CUDA_CALLS = 0
 
 
 def read_counts():
     """Launches of every kernel entry, plain calls on CUDA tensors, and torch
     cross-twiddle multiplies on CUDA tensors."""
     from boojum_tpu_torch.gadgets import sha256_witness as sw
+    from boojum_tpu_torch.hash import device_bytes_hash as dbh
     from boojum_tpu_torch.hash import pallas_poseidon2 as pp
     from boojum_tpu_torch.hash import poseidon
     from boojum_tpu_torch.ntt import mxu_ntt
@@ -604,9 +847,13 @@ def read_counts():
                 poseidon2_node_layer=pp.NODE_LAUNCHES,
                 ntt_small=pn.LAUNCHES, sha256_witness=sw.LAUNCHES,
                 poseidon_sponge=poseidon.LAUNCHES,
+                blake2s_leaf_hashes=dbh.LEAF_LAUNCHES["blake2s"],
+                blake2s_node_layer=dbh.NODE_LAUNCHES["blake2s"],
+                keccak256_leaf_hashes=dbh.LEAF_LAUNCHES["keccak256"],
+                keccak256_node_layer=dbh.NODE_LAUNCHES["keccak256"],
                 plain_on_cuda=mxu_ntt.PLAIN_CUDA_CALLS + pp.PLAIN_CUDA_CALLS
                 + pn.PLAIN_CUDA_CALLS + sw.PLAIN_CUDA_CALLS
-                + poseidon.PLAIN_CUDA_CALLS,
+                + poseidon.PLAIN_CUDA_CALLS + dbh.PLAIN_CUDA_CALLS,
                 torch_twiddle_muls=pn.TORCH_TWIDDLE_MULS)
 
 
@@ -687,7 +934,8 @@ def ntt_path(k4):
     return counts
 
 
-def per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks, k6_shapes):
+def per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
+                    byte_shapes):
     """Holds every kernel shape one prove launched against its plain version,
     times it and sums, per kernel, launches x time and launches x (time -
     bound) over the prove. Returns the sums and each kernel's largest
@@ -736,6 +984,12 @@ def per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks, k6_shapes):
         tot[1] += n * t["ms"]
         tot[2] += n * (t["ms"] - t["bound_ms"])
         del x
+    for key, n in sorted(byte_shapes.items()):
+        algo, shape = key[0], key[1:]
+        name = "%s_%s" % (algo, "leaf_hashes" if shape[0] == "leaf"
+                          else "node_layer")
+        log("per prove: %s %s x %d" % (name, shape[1:], n))
+        add(name, n, time_byte(rng, algo, shape))
     out = {k: dict(launches=v[0], sum_ms=round(v[1], 4),
                    lost_ms=round(v[2], 4)) for k, v in totals.items()}
     log("per prove, by kernel (launches, sum of launches x time, sum of "
@@ -988,7 +1242,136 @@ def flagship():
                 "calls, more than %d" % (mode, sum(sites.values()),
                                          MAX_SYNCS[mode]))
     device_prover.materialize_witness_columns = materialize
-    return counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes
+    ctx = dict(cs=cs, sb=sb, ref=ref, proof=proof, vk=art.vk)
+    return counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes, ctx
+
+
+def byte_flagship(ctx, kind, warm):
+    """The reference's non-recursive configuration on the flagship circuit
+    (the circuit and base setup of `flagship`): the ``kind`` transcript
+    (blake2s or keccak256) on the host and ``kind`` trees on K8 / K9, LDE 8,
+    cap 16, security 100, no PoW. Setup, one cold prove and ``warm`` warm
+    proves, each proof's digest against the reference's; with warm proves,
+    the stage split of one synced prove and the synchronizing calls of one
+    more (at most the host transcript's 12: a byte transcript runs on the
+    host). Returns the counts of the path, the byte-hash launches of its
+    last prove by shape, and its proof and VK."""
+    import torch
+    from boojum_tpu_torch.hash import device_bytes_hash as dbh
+    from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
+                                         create_device_setup)
+    from boojum_tpu_torch.prover.proof import proof_to_json
+
+    with open(os.path.join(ROOT, "boojum_tpu_torch", "data",
+                           "flagship_%s_proof_digest.json" % kind)) as f:
+        ref = json.load(f)
+    base = ctx["ref"]
+    if [ref[k] for k in ("seed", "input_len", "max_trace_len")] != \
+            [base[k] for k in ("seed", "input_len", "max_trace_len")] or \
+            (ref["transcript"], ref["hasher"]) != (kind, kind):
+        raise AssertionError("%s digest file is for another circuit or "
+                             "configuration" % kind)
+    cfg = ProofConfig(**ref["config"])
+    reset_counts()  # counts of this path only
+    t0 = time.time()
+    art = create_device_setup(ctx["cs"], ctx["sb"], cfg, kind, device="cuda")
+    prover = DeviceProver(ctx["cs"], art, cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+
+    def prove(**kw):
+        t = time.time()
+        proof = prover.prove(kind, kind, **kw)
+        torch.cuda.synchronize()
+        return proof, time.time() - t
+
+    def check(proof, what):
+        digest = hashlib.sha256(proof_to_json(proof).encode()).hexdigest()
+        if digest != ref["proof_json_sha256"]:
+            raise AssertionError("the %s %s proof differs from the reference "
+                                 "(sha256 %s)" % (kind, what, digest))
+        return digest
+
+    before = dbh.SHAPES.copy()
+    proof, t_cold = prove()
+    shapes = dbh.SHAPES - before
+    digest = check(proof, "cold")
+    times = []
+    for _ in range(warm):
+        before = dbh.SHAPES.copy()
+        proof, t = prove()
+        shapes = dbh.SHAPES - before
+        check(proof, "warm")
+        times.append(t)
+    counts = read_counts()
+    log("%s flagship: create_device_setup %.2f s, prove cold %.3f s%s; "
+        "proof_to_json sha256 %s (reference %s)" % (
+            kind, t_setup, t_cold, "".join(
+                ", warm %.4f s" % t for t in times), digest,
+            ref["proof_json_sha256"]))
+    log("%s flagship launches (setup + %d proves): %s" % (
+        kind, 1 + warm, json.dumps(counts)))
+    leaf, node = "%s_leaf_hashes" % kind, "%s_node_layer" % kind
+    for name in ("ntt_stage", "sha256_witness", leaf, node):
+        if counts[name] <= 0:
+            raise AssertionError("%s never launched on the %s path"
+                                 % (name, kind))
+    if counts["plain_on_cuda"]:
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    if counts["poseidon2_leaf_hashes"] or counts["poseidon_sponge"]:
+        raise AssertionError("the %s configuration hashed with Poseidon2 "
+                             "trees or the Poseidon sponge" % kind)
+    if warm:
+        staged, _ = prove(on_stage=lambda label: None)
+        check(staged, "synced")
+        log("%s flagship stage split (one synced prove, s): %s" % (
+            kind, json.dumps({k: round(v, 4) for k, v in
+                              prover.last_stage_times.items()})))
+        sites, (synced, t) = count_syncs(lambda: prove())
+        check(synced, "sync-counted")
+        log("%s flagship synchronizing calls, one warm prove: %d (%.3f s); "
+            "by source line: %s" % (kind, sum(sites.values()), t,
+                                    json.dumps(dict(sites.most_common()))))
+        if sum(sites.values()) > MAX_SYNCS["host"]:
+            raise AssertionError("a warm %s prove made %d synchronizing "
+                                 "calls, more than %d" % (
+                                     kind, sum(sites.values()),
+                                     MAX_SYNCS["host"]))
+    return counts, shapes, proof, art.vk
+
+
+def verify_path(proofs):
+    """The port's `verify` (host code on Python ints) on each flagship
+    proof, timed, and on the Blake2s proof with one witness leaf element
+    flipped, which it must reject. It must launch no kernel."""
+    import copy
+    from boojum_tpu_torch.verifier import verifier
+
+    reset_counts()
+    secs = {}
+    for name, (vk, proof, kind, hasher) in proofs.items():
+        t = time.time()
+        ok = verifier.verify(vk, proof, kind, hasher)
+        secs[name] = round(time.time() - t, 3)
+        log("verify %s proof (%s transcript, %s trees): %s in %.3f s%s" % (
+            name, kind, hasher, ok, secs[name],
+            "" if ok else " (%s)" % verifier.last_failure()))
+        if not ok:
+            raise AssertionError("the port's verify rejected the %s proof"
+                                 % name)
+    vk, proof, kind, hasher = proofs["blake2s"]
+    bad = copy.deepcopy(proof)
+    bad.queries_per_fri_repetition[0].witness_query.leaf_elements[0] ^= 1
+    if verifier.verify(vk, bad, kind, hasher) is not False:
+        raise AssertionError("the port's verify accepted a proof with a "
+                             "flipped leaf element")
+    log("verify: a flipped witness leaf element is rejected (%s)"
+        % verifier.last_failure())
+    counts = read_counts()
+    if any(v for k, v in counts.items()):
+        raise AssertionError("verify launched kernels: %s"
+                             % json.dumps(counts))
+    return secs
 
 
 def permute_path(rng):
@@ -1022,10 +1405,14 @@ def main():
     kernels_only = "--kernels-only" in sys.argv[1:]
     card = card_line()  # name, power.limit as nvidia-smi prints them
     log(card)
-    t0 = time.time()
+    t_start = t0 = time.time()
     cuda_build.build_all(verbose=True)
     log("build: %.1f s (%s)" % (time.time() - t0, ", ".join(cuda_build.KERNELS)))
     sass = sass_report()
+    byte_sass()
+
+    def phase(name):
+        log("phase %s done at %.1f s" % (name, time.time() - t_start))
 
     rng = np.random.default_rng(7)
     k1_err = check_ntt_stage(rng)
@@ -1038,18 +1425,35 @@ def main():
     k4_err, k4 = check_ntt_small(rng)
     k5_err, k5 = check_sha256_witness(rng)
     k6_err = check_poseidon_sponge(rng)
+    byte_checks = check_bytes_hash(rng)
+    phase("kernel checks")
     if kernels_only:
         log("chip_smoke: --kernels-only, stopping after the kernel checks")
         return 0
 
-    counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes = flagship()
+    counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes, ctx = flagship()
+    phase("poseidon flagship")
+    b2s_counts, b2s_shapes, b2s_proof, b2s_vk = byte_flagship(
+        ctx, "blake2s", BYTE_WARM_PROVES)
+    phase("blake2s flagship")
+    kec_counts, kec_shapes, kec_proof, kec_vk = byte_flagship(
+        ctx, "keccak256", 0)
+    phase("keccak256 flagship")
+    verify_secs = verify_path({
+        "poseidon": (ctx["vk"], ctx["proof"], ctx["ref"]["transcript"],
+                     ctx["ref"]["hasher"]),
+        "blake2s": (b2s_vk, b2s_proof, "blake2s", "blake2s"),
+        "keccak256": (kec_vk, kec_proof, "keccak256", "keccak256")})
+    phase("verify")
     costs, prove_errs = per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks,
-                                        k6_shapes)
+                                        k6_shapes, b2s_shapes + kec_shapes)
     # K6's row: the prove's largest absorb (the values at z)
     k6 = time_k6(rng, max(s for s in k6_shapes if s[0] == "absorb"),
                  plain=True)
+    phase("per-prove kernel costs")
     ntt_counts = ntt_path(k4)
     perm_counts = permute_path(rng)
+    phase("ntt and permute paths")
 
     def row(name, source, replaces, launches, err, t):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1084,10 +1488,21 @@ def main():
             K6_REPLACES, counts["poseidon_sponge"],
             max(k6_err, k6["err"], prove_errs["poseidon_sponge"]), k6),
     ]
+    for algo, path_counts in (("blake2s", b2s_counts),
+                              ("keccak256", kec_counts)):
+        for entry, name in (("leaf", "%s_leaf_hashes" % algo),
+                            ("node", "%s_node_layer" % algo)):
+            err, t = byte_checks[name]
+            kernels.append(row(name, BYTE_SOURCES[algo],
+                               BYTE_REPLACES[(algo, entry)],
+                               path_counts[name],
+                               max(err, prove_errs[name]), t))
+    log("verify seconds per proof: " + json.dumps(verify_secs))
     log("summary: " + json.dumps(dict(per_prove=costs, sass={
         k: {f: v[f] for f in ("total", "integer", "imad", "integer_per_pass",
                               "integer_per_element") if f in v}
-        for k, v in sass.items()})))
+        for k, v in sass.items()}, byte_sass={
+            "%s/%s" % k: v for k, v in BYTE_SASS.items()})))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

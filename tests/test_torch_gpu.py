@@ -4,8 +4,11 @@ of the redesigned kernels bit-equal to its plain version on the card
 (`ntt_stage` at every template instance and a ragged width; `ntt_small` at
 every template instance, with and without its cross twiddle; the three
 Poseidon2 entries at the trees' shapes; the SHA-256 witness chain at 1 and 3
-blocks; the Poseidon sponge's absorb and permute), and the device witness
-program of a small SHA-256 circuit on the card against the CPU. It skips
+blocks; the Poseidon sponge's absorb and permute; the Blake2s and
+Keccak-256 leaf and node entries at the block-boundary widths and the
+flagship's widest leaf), the device witness program of a small SHA-256
+circuit on the card against the CPU, and a small Blake2s and Keccak-256
+proof on the card against the CPU. It skips
 without a GPU. This file
 imports no JAX, so on the GPU machine (which has none) it runs without the
 suite's conftest:
@@ -25,6 +28,7 @@ from boojum_tpu_torch.cs.setup import create_base_setup
 from boojum_tpu_torch.field import goldilocks as gl
 from boojum_tpu_torch.gadgets import sha256_witness as sw
 from boojum_tpu_torch.gadgets.sha256 import INITIAL_STATE, build_sha256_circuit
+from boojum_tpu_torch.hash import device_bytes_hash as dbh
 from boojum_tpu_torch.hash import pallas_poseidon2 as pp
 from boojum_tpu_torch.hash import poseidon
 from boojum_tpu_torch.ntt import mxu_ntt, ntt, pallas_ntt
@@ -83,6 +87,20 @@ def test_small_proof_on_gpu_equals_cpu(cuda):
         art = create_device_setup(cs, sb, cfg, "poseidon2", device=device)
         proofs.append(proof_to_json(DeviceProver(cs, art, cfg, device=device)
                                     .prove("poseidon", "poseidon2")))
+    assert proofs[0] == proofs[1]
+
+
+@pytest.mark.parametrize("kind", ["blake2s", "keccak256"])
+def test_small_byte_proof_on_gpu_equals_cpu(cuda, kind):
+    """The byte transcript on the host, the byte trees on kernel K8 / K9."""
+    cs = _small_circuit()
+    sb = create_base_setup(cs)
+    cfg = ProofConfig(fri_lde_factor=8, merkle_tree_cap_size=4)
+    proofs = []
+    for device in ("cpu", cuda):
+        art = create_device_setup(cs, sb, cfg, kind, device=device)
+        proofs.append(proof_to_json(DeviceProver(cs, art, cfg, device=device)
+                                    .prove(kind, kind)))
     assert proofs[0] == proofs[1]
 
 
@@ -158,6 +176,28 @@ def test_poseidon2_leaf_hashes_equal_plain(cuda, k, m):
 def test_poseidon2_node_layer_equals_plain(cuda, m):
     cur = _rand(cuda, m, (4, m))
     assert torch.equal(pp.node_layer(cur), pp.node_layer_plain(cur))
+
+
+@pytest.mark.parametrize("algo", ["blake2s", "keccak256"])
+@pytest.mark.parametrize("k,m", [(1, 1000), (8, 4096), (16, 4096),
+                                 (17, 4096), (34, 333), (93, 1 << 16)])
+def test_byte_leaf_hashes_equal_plain(cuda, algo, k, m):
+    """k = 8, 16: whole Blake2s blocks; k = 17, 34: the Keccak pad in a
+    block of its own; 93: the flagship's witness leaf."""
+    cols = _rand(cuda, k, (k, m))
+    assert torch.equal(dbh.leaf_hashes(cols, algo),
+                       dbh._PLAIN[algo][0](cols))
+    view = cols[:, :m // 2]  # a row stride wider than the leaf count
+    assert torch.equal(dbh.leaf_hashes(view, algo),
+                       dbh._PLAIN[algo][0](view))
+
+
+@pytest.mark.parametrize("algo", ["blake2s", "keccak256"])
+@pytest.mark.parametrize("m", [2, 32, 1 << 16])
+def test_byte_node_layer_equals_plain(cuda, algo, m):
+    cur = gl.from_u64(np.random.default_rng(m).integers(
+        0, 1 << 32, (8, m), dtype=np.uint64), cuda)
+    assert torch.equal(dbh.node_layer(cur, algo), dbh._PLAIN[algo][1](cur))
 
 
 @pytest.mark.parametrize("nb", [1, 3, 33, 129])

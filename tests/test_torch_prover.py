@@ -2,9 +2,12 @@
 prover on the small lookup circuit of tests/test_prove_verify.py, built once
 with each package's own circuit code from the same seed. Proofs must be
 byte-identical under `proof_to_json`, and the reference verifier must accept
-the port's proofs."""
+the port's proofs (and the port's verifier the reference's), for the
+algebraic transcripts with Poseidon2 trees, the Blake2s and Keccak-256
+configurations, and with proof of work."""
 
 import importlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ from boojum_tpu.prover import create_setup_and_vk, prove
 from boojum_tpu.prover.proof import proof_to_json as ref_proof_to_json
 from boojum_tpu.prover.serialization import save_setup_base, vk_to_json
 from boojum_tpu.verifier import verify
+from boojum_tpu_torch.cs import LookupParameters
 from boojum_tpu_torch.cs.setup import create_base_setup
 from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                      create_device_setup)
@@ -25,6 +29,7 @@ from boojum_tpu_torch.prover import device_transcript as dtm
 from boojum_tpu_torch.prover.proof import proof_to_json
 from boojum_tpu_torch.prover.serialization import (load_setup_base,
                                                    setup_base_from_arrays)
+from boojum_tpu_torch.verifier import verify as port_verify
 
 P = 0xFFFFFFFF00000001
 CFG = dict(fri_lde_factor=8, merkle_tree_cap_size=4, security_level=100,
@@ -243,11 +248,76 @@ def test_setup_base_loads_from_reference_npz(both, tmp_path):
             assert getattr(sb, name) == getattr(ref_sb, name), name
 
 
+def _configured_proofs(both, cfg, transcript, hasher):
+    """The reference host proof and the port's CPU proof under ``cfg``, each
+    from its own setup of the shared circuit."""
+    ref_art = create_setup_and_vk(both["ref_cs"], both["ref_sb"],
+                                  RefProofConfig(**cfg), hasher)
+    art = create_device_setup(both["cs"], both["sb"], ProofConfig(**cfg),
+                              hasher, device="cpu")
+    assert vk_to_json(art.vk) == vk_to_json(ref_art.vk)
+    ref_proof = prove(both["ref_cs"], ref_art, RefProofConfig(**cfg),
+                      transcript, hasher)
+    fetches = device_merkle.FETCHES
+    proof = DeviceProver(both["cs"], art, ProofConfig(**cfg),
+                         device="cpu").prove(transcript, hasher)
+    assert device_merkle.FETCHES - fetches == 1  # the query phase's one
+    return ref_art, art, ref_proof, proof
+
+
+@pytest.mark.parametrize("kind", ["blake2s", "keccak256"])
+def test_byte_hash_proof_is_byte_identical_and_verifies(both, kind):
+    """The non-recursive configurations: the byte transcript (on the host)
+    and byte trees (kernels K8 / K9, here their plain versions)."""
+    ref_art, art, ref_proof, proof = _configured_proofs(both, CFG, kind, kind)
+    assert proof_to_json(proof) == ref_proof_to_json(ref_proof)
+    assert verify(ref_art.vk, proof, kind, kind)
+    assert port_verify(art.vk, ref_proof, kind, kind)
+
+
+@pytest.mark.parametrize("pow_hash,kind,hasher", [
+    ("blake2s", "blake2s", "blake2s"),
+    ("keccak256", "keccak256", "keccak256"),
+    ("poseidon2", "poseidon2", "poseidon2")])
+def test_pow_proof_is_byte_identical_and_verifies(both, pow_hash, kind,
+                                                  hasher, monkeypatch):
+    """pow_bits = 8: the grind runs on the host after FRI and gives the
+    reference's nonce; both verifiers check it, and a wrong nonce fails.
+    The reference grinds through its serial path (`_grind_range` over all
+    nonces): its pool forks a process that has threads, which can hang
+    under a loaded test run; the nonce is the same smallest one."""
+    from boojum_tpu.prover import pow as ref_pow
+    monkeypatch.setattr(ref_pow, "_parallel_grind",
+                        lambda kind, seed, threshold, block=0:
+                        ref_pow._grind_range((kind, seed, threshold, 0,
+                                              1 << 40)))
+    cfg = dict(CFG, pow_bits=8, pow_hash=pow_hash)
+    ref_art, art, ref_proof, proof = _configured_proofs(both, cfg, kind,
+                                                        hasher)
+    assert proof_to_json(proof) == ref_proof_to_json(ref_proof)
+    assert verify(ref_art.vk, proof, kind, hasher)
+    assert port_verify(art.vk, proof, kind, hasher)
+    proof.pow_challenge += 1
+    assert not port_verify(art.vk, proof, kind, hasher)
+
+
 def test_unported_options_raise(both):
+    """What is still not ported raises: the classic-Poseidon tree hasher,
+    general-purpose lookups, and the device transcript with a byte
+    transcript or byte trees."""
+    prover = DeviceProver(both["cs"], both["art"], ProofConfig(**CFG),
+                          device="cpu")
     with pytest.raises(NotImplementedError):
-        DeviceProver(both["cs"], both["art"], ProofConfig(**CFG),
-                     device="cpu").prove("poseidon", "blake2s")
+        prover.prove("poseidon", "poseidon")
     with pytest.raises(NotImplementedError):
-        create_device_setup(both["cs"], both["sb"],
-                            ProofConfig(**dict(CFG, pow_bits=10)),
+        create_device_setup(both["cs"], both["sb"], ProofConfig(**CFG),
+                            "poseidon", device="cpu")
+    with pytest.raises(ValueError, match="device transcript"):
+        prover.prove("blake2s", "blake2s", device_transcript=True)
+    with pytest.raises(ValueError, match="device transcript"):
+        prover.prove("poseidon", "blake2s", device_transcript=True)
+    general = SimpleNamespace(
+        lookup_parameters=LookupParameters.table_id_as_constant(width=3))
+    with pytest.raises(NotImplementedError, match="general-purpose"):
+        create_device_setup(general, both["sb"], ProofConfig(**CFG),
                             device="cpu")
