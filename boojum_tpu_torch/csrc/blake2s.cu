@@ -11,8 +11,12 @@
 //   canonical u64 elements, row j at cols + j * ld; leaf i is column i, its
 //   bytes the k elements little-endian. out is (8, m): word w of digest i
 //   at out[w * m + i], as a u64 in [0, 2^32).
-// - blake2s_node_layer(cur, out, m): cur is an (8, m) digest layer, out the
-//   (8, m / 2) digests of left || right for each sibling pair.
+// - blake2s_node_layers(cur, out, m, levels, tickets): cur is an (8, m)
+//   digest layer, m a multiple of 2^levels; out receives the `levels`
+//   layers above it one after the other ((8, m / 2), then (8, m / 4), ...),
+//   each digest the hash of left || right of its sibling pair; tickets
+//   holds byte_tree's zeroed hand-on counters (byte_tree.cuh: one launch a
+//   tree, blocks of 3 levels handing on to the last of each 8).
 //
 // Bound: the operations. A compression is 10 rounds of 8 G functions, each
 // 6 adds, 4 xors and 4 rotates on 32-bit words, all dependent within a G
@@ -20,7 +24,7 @@
 // and writes 32. At the flagship's widest leaf (93 elements, 12 blocks)
 // that is 1,120 integer operations per 62 bytes read.
 //
-// Design: one thread per leaf or node, the chaining value, the 16 working
+// Design: one thread per leaf or parent, the chaining value, the 16 working
 // words and the message block in registers. The 10 rounds are written out
 // with their message schedule as literals (BLAKE2S_ROUND), so every message
 // index is a register name, not a memory lookup. Threads of a warp read 32
@@ -29,6 +33,8 @@
 // k elements, carries the last-block flag.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "byte_tree.cuh"
 
 namespace {
 
@@ -122,25 +128,20 @@ __global__ void __launch_bounds__(THREADS)
   for (int w = 0; w < 8; ++w) out[w * m + i] = h[w];
 }
 
-__global__ void __launch_bounds__(THREADS)
-    node_kernel(const uint64_t* __restrict__ cur, uint64_t* __restrict__ out,
-                long long m) {
-  const long long half = m / 2;
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= half) return;
-  uint32_t m16[16];
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    const ulonglong2 pair =
-        *reinterpret_cast<const ulonglong2*>(cur + w * m + 2 * i);
-    m16[w] = (uint32_t)pair.x;
-    m16[8 + w] = (uint32_t)pair.y;
+// the node hash: one compression of the 64 bytes left || right, counter 64,
+// last-block flag set
+struct NodeHash {
+  __device__ __forceinline__ void operator()(const uint32_t in[16],
+                                             uint32_t h[8]) const {
+    init(h);
+    compress(h, in, 64u, true);
   }
-  uint32_t h[8];
-  init(h);
-  compress(h, m16, 64u, true);
-#pragma unroll
-  for (int w = 0; w < 8; ++w) out[w * half + i] = h[w];
+};
+
+__global__ void __launch_bounds__(byte_tree::THREADS)
+    nodes_kernel(const uint64_t* cur, uint64_t* out, long long m, int levels,
+                 unsigned* tickets) {
+  byte_tree::node_tree(cur, out, m, levels, tickets, NodeHash());
 }
 
 unsigned grid_for(long long n) {
@@ -157,10 +158,11 @@ extern "C" int blake2s_leaf_hashes(const void* cols, void* out, int k,
   return (int)cudaGetLastError();
 }
 
-extern "C" int blake2s_node_layer(const void* cur, void* out, long long m,
-                                  void* stream) {
-  if (m < 2 || m % 2) return (int)cudaErrorInvalidValue;
-  node_kernel<<<grid_for(m / 2), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)cur, (uint64_t*)out, m);
+extern "C" int blake2s_node_layers(const void* cur, void* out, long long m,
+                                   int levels, void* tickets, void* stream) {
+  if (!byte_tree::valid(m, levels)) return (int)cudaErrorInvalidValue;
+  nodes_kernel<<<byte_tree::grid(m), byte_tree::THREADS, 0,
+                 (cudaStream_t)stream>>>((const uint64_t*)cur, (uint64_t*)out,
+                                         m, levels, (unsigned*)tickets);
   return (int)cudaGetLastError();
 }

@@ -14,8 +14,12 @@
 //   bytes the k elements little-endian, so element j is message lane j.
 //   out is (8, m): word w of digest i at out[w * m + i], a u64 in
 //   [0, 2^32).
-// - keccak_node_layer(cur, out, m): cur is an (8, m) digest layer, out the
-//   (8, m / 2) digests of the 64 bytes left || right of each sibling pair.
+// - keccak_node_layers(cur, out, m, levels, tickets): cur is an (8, m)
+//   digest layer, m a multiple of 2^levels; out receives the `levels`
+//   layers above it one after the other ((8, m / 2), then (8, m / 4), ...),
+//   each digest the hash of the 64 bytes left || right of its sibling pair;
+//   tickets holds byte_tree's zeroed hand-on counters (byte_tree.cuh: one
+//   launch a tree, blocks of 3 levels handing on to the last of each 8).
 //
 // Bound: the operations. A permutation is 24 rounds of theta (50 xors, 5
 // rotates), rho and pi (25 rotates), chi (25 and-nots, 25 xors) and iota on
@@ -23,7 +27,7 @@
 // block absorbs with one permutation. The flagship's widest leaf (93
 // elements) is 6 permutations per 744 bytes read.
 //
-// Design: one thread per leaf or node with the 25 lanes in registers. The
+// Design: one thread per leaf or parent with the 25 lanes in registers. The
 // round is written out lane by lane (rotation counts as template
 // arguments), and only the round constant is read from constant memory, so
 // the round loop stays rolled and small. A 17-lane block is read row by
@@ -33,6 +37,8 @@
 // of its own.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "byte_tree.cuh"
 
 namespace {
 
@@ -159,30 +165,32 @@ __global__ void __launch_bounds__(THREADS)
   write_digest(s, out, m, i);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    node_kernel(const uint64_t* __restrict__ cur, uint64_t* __restrict__ out,
-                long long m) {
-  const long long half = m / 2;
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= half) return;
-  uint32_t words[16];  // left's 8 words, then right's
+// the node hash: the 64 bytes left || right as lanes 0-7, the pad's 0x01
+// in lane 8 and its 0x80 in lane 16, one permutation
+struct NodeHash {
+  __device__ __forceinline__ void operator()(const uint32_t in[16],
+                                             uint32_t h[8]) const {
+    uint64_t s[25];
 #pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    const ulonglong2 pair =
-        *reinterpret_cast<const ulonglong2*>(cur + w * m + 2 * i);
-    words[w] = (uint32_t)pair.x;
-    words[8 + w] = (uint32_t)pair.y;
+    for (int j = 0; j < 8; ++j)
+      s[j] = (uint64_t)in[2 * j] | ((uint64_t)in[2 * j + 1] << 32);
+    s[8] = 0x01ull;
+#pragma unroll
+    for (int j = 9; j < 25; ++j) s[j] = 0;
+    s[RATE - 1] = 0x8000000000000000ull;
+    keccak_f(s);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      h[2 * w] = (uint32_t)s[w];
+      h[2 * w + 1] = (uint32_t)(s[w] >> 32);
+    }
   }
-  uint64_t s[25];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    s[j] = (uint64_t)words[2 * j] | ((uint64_t)words[2 * j + 1] << 32);
-  s[8] = 0x01ull;
-#pragma unroll
-  for (int j = 9; j < 25; ++j) s[j] = 0;
-  s[RATE - 1] = 0x8000000000000000ull;
-  keccak_f(s);
-  write_digest(s, out, half, i);
+};
+
+__global__ void __launch_bounds__(byte_tree::THREADS)
+    nodes_kernel(const uint64_t* cur, uint64_t* out, long long m, int levels,
+                 unsigned* tickets) {
+  byte_tree::node_tree(cur, out, m, levels, tickets, NodeHash());
 }
 
 unsigned grid_for(long long n) {
@@ -199,10 +207,11 @@ extern "C" int keccak_leaf_hashes(const void* cols, void* out, int k,
   return (int)cudaGetLastError();
 }
 
-extern "C" int keccak_node_layer(const void* cur, void* out, long long m,
-                                 void* stream) {
-  if (m < 2 || m % 2) return (int)cudaErrorInvalidValue;
-  node_kernel<<<grid_for(m / 2), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)cur, (uint64_t*)out, m);
+extern "C" int keccak_node_layers(const void* cur, void* out, long long m,
+                                  int levels, void* tickets, void* stream) {
+  if (!byte_tree::valid(m, levels)) return (int)cudaErrorInvalidValue;
+  nodes_kernel<<<byte_tree::grid(m), byte_tree::THREADS, 0,
+                 (cudaStream_t)stream>>>((const uint64_t*)cur, (uint64_t*)out,
+                                         m, levels, (unsigned*)tickets);
   return (int)cudaGetLastError();
 }

@@ -8,23 +8,27 @@ left_digest || right_digest (64 bytes). The reference's own non-recursive
 SHA-256 bench (sha256_bench_non_recursive.sh) uses the Blake2s tree and
 transcript.
 
-Each hash has two entries, each one launch of a Hopper kernel on a CUDA
-tensor (``csrc/blake2s.cu``, K8; ``csrc/keccak.cu``, K9), and its plain torch
+Each hash has two entries, each launching a Hopper kernel on a CUDA tensor
+(``csrc/blake2s.cu``, K8; ``csrc/keccak.cu``, K9), and its plain torch
 version on a CPU tensor:
 
 - `leaf_hashes(cols, algo)`: canonical (k, m) int64
   leaf columns -> (8, m) digests, leaf i being column i (the JAX
   `blake2s_leaves_traced` / `keccak_leaves_traced`, a ``lax.scan`` over
-  the message blocks);
-- `node_layer(cur, algo)`: a (8, m) digest layer, m
-  even -> the (8, m/2) digests of its sibling pairs (the JAX
-  `blake2s_nodes_traced` / `keccak_nodes_traced`).
+  the message blocks); one launch;
+- `node_layers(cur, algo, cap_size)`: a (8, m) digest layer -> the node
+  layers above it down to the cap, each parent the hash of its (left,
+  right) sibling pair (the JAX `blake2s_nodes_traced` /
+  `keccak_nodes_traced` a layer); one launch for the whole tree, two for
+  a tree above 2^17 digests (``csrc/byte_tree.cuh``: blocks of 256
+  threads hash subtrees of 3 levels in shared memory, and the last block
+  of every 8 goes on up the tree), all layers views of one buffer.
 
 A digest is held as the reference's 8 little-endian u32 word planes, each
 word an int64 in [0, 2^32) (torch's uint32 lacks shifts on some CPU builds);
 `digests_to_bytes` turns host planes into 32-byte strings. Eager torch would
 need about 1,100 launches for one Blake2s compression; the kernels take one
-thread per leaf or node with the whole state in registers.
+thread per leaf or parent with the whole state in registers.
 """
 
 from __future__ import annotations
@@ -42,8 +46,18 @@ from .keccak import _ROT as _K_ROT
 LEAF_LAUNCHES = collections.Counter()  # "blake2s" / "keccak256"
 NODE_LAUNCHES = collections.Counter()
 PLAIN_CUDA_CALLS = 0
-# launches by (hash, entry, shape): (algo, "leaf", k, m), (algo, "node", m)
+# launches by (hash, entry, shape): (algo, "leaf", k, m),
+# (algo, "nodes", m, levels)
 SHAPES = collections.Counter()
+# the node kernels' schedule (csrc/byte_tree.cuh): threads a block, levels a
+# stage, and blocks of a stage that hand their digests on to one block
+NODE_THREADS = 256
+NODE_STAGE = 3
+NODE_GROUP = 1 << NODE_STAGE
+# a tree above this many digests takes two launches, its first stage alone:
+# measured faster for Blake2s and Keccak-256 at 2^18 and 2^19 digests, and
+# slower at 2^16 and below (scripts/torch_byte_tree_compare.py --sweep)
+NODE_SPLIT = 1 << 17
 
 _M32 = 0xFFFFFFFF
 DIGEST_WORDS = 8
@@ -139,8 +153,8 @@ def blake2s_leaves_plain(cols: torch.Tensor) -> torch.Tensor:
 
 
 def blake2s_nodes_plain(cur: torch.Tensor) -> torch.Tensor:
-    """The plain torch version of ``blake2s_node_layer``: one compression of
-    the 64 bytes left || right per parent."""
+    """One node layer of ``blake2s_node_layers``'s plain chain: one
+    compression of the 64 bytes left || right per parent."""
     _count_plain(cur)
     left, right = cur[:, 0::2], cur[:, 1::2]
     msg = [left[i] for i in range(8)] + [right[i] for i in range(8)]
@@ -207,8 +221,8 @@ def keccak_leaves_plain(cols: torch.Tensor) -> torch.Tensor:
 
 
 def keccak_nodes_plain(cur: torch.Tensor) -> torch.Tensor:
-    """The plain torch version of ``keccak256_node_layer``: the 64 bytes
-    left || right as 8 lanes, one absorbed block."""
+    """One node layer of ``keccak256_node_layers``'s plain chain: the 64
+    bytes left || right as 8 lanes, one absorbed block."""
     _count_plain(cur)
     halves = (cur[:, 0::2], cur[:, 1::2])
     return _keccak_absorb([h[2 * i] | (h[2 * i + 1] << 32)
@@ -258,30 +272,96 @@ def leaf_hashes(cols: torch.Tensor, algo: str) -> torch.Tensor:
     return out
 
 
-def node_layer(cur: torch.Tensor, algo: str) -> torch.Tensor:
-    """(8, m) digests, m even -> (8, m/2) parents: the hash of each (left,
-    right) sibling pair; one launch of ``<algo>_node_layer`` on a CUDA
-    tensor."""
+def node_widths(m: int, cap_size: int) -> list:
+    """Widths of the node layers above an m-digest layer: halving while the
+    width is above ``cap_size`` and even."""
+    widths = []
+    while m > cap_size and m % 2 == 0:
+        m //= 2
+        widths.append(m)
+    return widths
+
+
+def node_launches(m: int, levels: int) -> list:
+    """The launches of ``<algo>_node_layers`` for ``levels`` layers above m
+    digests, as (input width, levels): one, or above `NODE_SPLIT` digests
+    two, the first stage alone and then the rest."""
+    if m > NODE_SPLIT and levels > NODE_STAGE:
+        return [(m, NODE_STAGE), (m >> NODE_STAGE, levels - NODE_STAGE)]
+    return [(m, levels)] if levels else []
+
+
+def node_tickets(m: int, levels: int) -> int:
+    """Hand-on counters one launch of ``<algo>_node_layers`` needs for
+    ``levels`` layers above m digests (csrc/byte_tree.cuh): one for each
+    group of `NODE_GROUP` blocks of every stage but the last."""
+    n = done = 0
+    while done + NODE_STAGE < levels:
+        blocks = -(-m // (2 * NODE_THREADS))
+        n += -(-blocks // NODE_GROUP)
+        m >>= NODE_STAGE
+        done += NODE_STAGE
+    return n
+
+
+def node_layers_plain(cur: torch.Tensor, algo: str, cap_size: int) -> list:
+    """The plain torch version of ``node_layers``: the plain node hash of
+    ``algo``, one layer at a time."""
+    layers = []
+    for _ in node_widths(cur.shape[1], cap_size):
+        cur = _PLAIN[algo][1](cur)
+        layers.append(cur)
+    return layers
+
+
+def node_buffer(cur: torch.Tensor, widths: list) -> list:
+    """One buffer on ``cur``'s device for node layers of these widths, one
+    after the other: the (8, w) views into it."""
+    buf = cur.new_empty(DIGEST_WORDS * sum(widths))
+    layers, at = [], 0
+    for w in widths:
+        layers.append(buf.as_strided((DIGEST_WORDS, w), (w, 1), at))
+        at += DIGEST_WORDS * w
+    return layers
+
+
+def node_layers(cur: torch.Tensor, algo: str, cap_size: int) -> list:
+    """(8, m) digests -> the node layers above them, (8, m/2), (8, m/4), ...,
+    down to ``cap_size`` digests or to the first odd width. On a CUDA
+    tensor, the launches of ``<algo>_node_layers`` that `node_launches`
+    plans (one, or two for a wide tree) compute them all into one buffer
+    (each layer an (8, m_l) view into it)."""
     _check(cur, "the node layer", algo, DIGEST_WORDS)
-    m = cur.shape[1]
-    if m % 2:
-        raise ValueError("a node layer needs an even width, got %d" % m)
     if cur.device.type == "cpu":
-        return _PLAIN[algo][1](cur)
+        return node_layers_plain(cur, algo, cap_size)
+    widths = node_widths(cur.shape[1], cap_size)
+    if not widths:
+        return []
     from ..utils import cuda_build
 
     cur = cur.contiguous()
     if cur.data_ptr() % 16:  # the kernels read each pair with one 16-byte load
         cur = cur.clone()
-    lib = cuda_build.load(_LIBS[algo])
-    out = cur.new_empty((DIGEST_WORDS, m // 2))
-    entry = "%s_node_layer" % _LIBS[algo]
-    rc = getattr(lib, entry)(cur.data_ptr(), out.data_ptr(), m,
-                             cuda_build.stream_handle(cur))
-    cuda_build.check(rc, entry)
-    NODE_LAUNCHES[algo] += 1
-    SHAPES[(algo, "node", m)] += 1
-    return out
+    layers = node_buffer(cur, widths)
+    launches = node_launches(cur.shape[1], len(widths))
+    # the hand-on counters of every launch, zeroed at once
+    counts = [node_tickets(m, levels) for m, levels in launches]
+    tickets = torch.zeros(max(sum(counts), 1), dtype=torch.int32,
+                          device=cur.device)
+    entry = "%s_node_layers" % _LIBS[algo]
+    launch = getattr(cuda_build.load(_LIBS[algo]), entry)
+    stream = cuda_build.stream_handle(cur)
+    src, done, first = cur, 0, 0
+    for (m, levels), n in zip(launches, counts):
+        rc = launch(src.data_ptr(), layers[done].data_ptr(), m, levels,
+                    tickets[first:].data_ptr(), stream)
+        cuda_build.check(rc, entry)
+        NODE_LAUNCHES[algo] += 1
+        SHAPES[(algo, "nodes", m, levels)] += 1
+        done += levels
+        first += n
+        src = layers[done - 1]
+    return layers
 
 
 def digests_to_bytes(words: np.ndarray) -> list[bytes]:

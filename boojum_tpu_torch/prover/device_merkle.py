@@ -7,11 +7,11 @@ of a Poseidon2 tree are one `pallas_poseidon2.leaf_hashes` call and each
 node layer one `pallas_poseidon2.node_layer` call (on the GPU one launch
 each of the Hopper `poseidon2_leaf_hashes` and `poseidon2_node_layer`
 kernels); a Blake2s or Keccak-256 tree (src/cs/oracle/mod.rs:179, :247)
-likewise takes one `device_bytes_hash.leaf_hashes` call and one
-`node_layer` call a layer (kernels K8 and K9). The layers stay on the
-device, and only caps and queried paths cross to the host: the query
-phase's gathers all ride one `FetchCollector` flush, one copy to the host
-and one wait.
+takes one `device_bytes_hash.leaf_hashes` call and one `node_layers` call
+(kernels K8 and K9: one launch for its node layers, two for a tree above
+2^17 leaves). The layers stay on the device, and only caps and queried
+paths cross to the host: the query phase's gathers all ride one
+`FetchCollector` flush, one copy to the host and one wait.
 """
 
 from __future__ import annotations
@@ -160,11 +160,12 @@ def build_device_bytes_tree(cols: torch.Tensor, cap_size: int,
     """Blake2s or Keccak-256 Merkle-cap tree of leaf columns (k, m): the leaf
     digests, then each node layer down to the cap; digests equal the
     reference's host `BytesMerkleTree`'s."""
-    cur = dbh.leaf_hashes(cols, algo)
-    layers = [cur]
-    while cur.shape[1] > cap_size:
-        cur = dbh.node_layer(cur, algo)
-        layers.append(cur)
+    layers = [dbh.leaf_hashes(cols, algo)]
+    layers += dbh.node_layers(layers[0], algo, cap_size)
+    if layers[-1].shape[1] > cap_size:
+        raise ValueError("a byte tree of %d leaves stops at an odd width %d "
+                         "above its cap %d" % (cols.shape[1],
+                                               layers[-1].shape[1], cap_size))
     return DeviceBytesTree(layers, algo)
 
 

@@ -55,14 +55,15 @@ _SIGNATURES = {
         "poseidon_absorb": [_P, _P, _LL, _P, _P, _P],
         "poseidon_permute": [_P, _P, _P, _P],  # state, out, constants, stream
     },
-    # cols, out, k, m, row stride of cols, stream; cur, out, m, stream
+    # cols, out, k, m, row stride of cols, stream; cur, out, m, levels,
+    # tickets, stream
     "blake2s": {
         "blake2s_leaf_hashes": [_P, _P, _I, _LL, _LL, _P],
-        "blake2s_node_layer": [_P, _P, _LL, _P],
+        "blake2s_node_layers": [_P, _P, _LL, _I, _P, _P],
     },
     "keccak": {
         "keccak_leaf_hashes": [_P, _P, _I, _LL, _LL, _P],
-        "keccak_node_layer": [_P, _P, _LL, _P],
+        "keccak_node_layers": [_P, _P, _LL, _I, _P, _P],
     },
 }
 

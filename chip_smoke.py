@@ -13,10 +13,14 @@ path's two shapes with its real twiddle tables, `sha256_witness` at 1, 3,
 (`poseidon_absorb` at 0 .. 130 elements from several states, and
 `poseidon_permute`), and the Blake2s (K8) and Keccak-256 (K9) tree hashes
 (`*_leaf_hashes` at k = 1, 8, 16, 17, 34, 93 elements a leaf, the block
-boundaries of both hashes, and on a strided view; `*_node_layer` at m = 2,
-32, 1000, 2^19); every shape it times is held against the plain version
-first. Then it drives these paths, each with the launch counts set to 0 just
-before it and read just after:
+boundaries of both hashes, and on a strided view; `*_node_layers`, every
+node layer of a tree in one launch (two above 2^17 leaves), against the
+plain per-layer chain at
+m = 2, 32 and 1000 with cap 1, at every tree of a prove (2^19, 2^16, 2^13,
+2^10, 2^7 and 2^4 leaves, cap 16) and at caps 1 and 4); every shape it
+times is held against the plain version first. Then it drives these
+paths, each with the launch counts set to 0 just before it and read just
+after:
 
 - the flagship: proves the 8 kB SHA-256 circuit (2^16 rows, LDE 8, cap 16,
   Poseidon transcript, Poseidon2 trees) through the port's entry points and
@@ -38,7 +42,8 @@ before it and read just after:
   prove by shape, holds each shape bit-exactly against its plain version,
   times it and prints, per kernel, the sum over a prove of launches x time
   and of launches x (time - bound) (likewise the byte hashes' shapes of a
-  Blake2s and a Keccak-256 prove);
+  Blake2s and a Keccak-256 prove, a `*_node_layers` launch bound by the
+  summed bound of its layers);
 - the non-recursive flagship: the same circuit in the reference's own
   non-recursive configuration, the Blake2s transcript (on the host) and
   Blake2s trees (K8), LDE 8, cap 16, security 100, no PoW: setup, one cold
@@ -47,7 +52,8 @@ before it and read just after:
   split of a synced prove, and at most 12 synchronizing calls in a warm
   prove; then one Keccak-256 prove (K9) against
   `flagship_keccak256_proof_digest.json`. Both must launch their tree
-  kernels, `ntt_stage` and `sha256_witness`, and no plain version;
+  kernels, `ntt_stage` and `sha256_witness`, and no plain version, and
+  no prove may launch `*_node_layers` more than 16 times;
 - the verifier: the port's `verify` (host code, no launch) accepts the
   Poseidon, Blake2s and Keccak-256 flagship proofs, each timed, and rejects
   the Blake2s proof with one witness leaf element flipped;
@@ -121,6 +127,9 @@ BYTE_LIBS = {"blake2s": "blake2s", "keccak256": "keccak"}
 H100_INT_PER_S = H100_IMAD_PER_S
 # warm proves of the Blake2s configuration
 BYTE_WARM_PROVES = 2
+# most `*_node_layers` launches a byte-tree prove may make: it makes 10, two
+# for each 2^19-leaf tree and one for the 2^16, 2^13, 2^10 and 2^7 ones
+MAX_NODE_LAUNCHES = 16
 # Dependency-chain model of the two sequential kernels (not a measured
 # bound): a SHA-256 round's critical path, e -> s1 -> tmp1 -> tmp1w -> te,
 # is about 8 dependent integer instructions; a Poseidon round's about 3
@@ -638,10 +647,12 @@ def pipe_counts(instrs, lo=None, hi=None):
 def byte_sass():
     """SASS of the four byte-hash entries, split into a fixed part and a
     part per message block (a Blake2s compression, a Keccak-f permutation)
-    by the kernels' loops: the Blake2s leaf kernel's block loop holds one
-    unrolled compression, its node kernel is straight-line; the Keccak
-    kernels' innermost loop is the 24-trip round loop, which the leaf
-    kernel's block loop holds."""
+    by the kernels' loops: the Blake2s leaf kernel's block loop and its
+    node kernel's level loop (inside its stage loop) each hold one unrolled
+    compression (the level loop also its loads, barriers and stores); the
+    Keccak kernels' innermost loop is the 24-trip round loop, which the
+    leaf kernel's block loop and the node kernel's level loop hold. The
+    node kernels' stage loop (the hand-on) counts as fixed."""
     from boojum_tpu_torch.utils import cuda_build
 
     def comb(a, b, kb=1):
@@ -649,21 +660,17 @@ def byte_sass():
 
     for algo, lib in BYTE_LIBS.items():
         for kname, instrs in cuda_build.sass(cuda_build._lib_path(lib)).items():
-            entry = "leaf" if "leaf_kernel" in kname else "node"
+            entry = "leaf" if "leaf_kernel" in kname else "nodes"
             s = cuda_build.sass_summary(instrs)
             loops = [pipe_counts(instrs, lp["start"], lp["end"]) for lp in
                      sorted(s["loops"], key=lambda lp: lp["end"] - lp["start"])]
             whole = pipe_counts(instrs)
-            zero = dict(alu=0, fma=0, all=0)
-            if algo == "blake2s" and entry == "leaf" and len(loops) == 1:
+            nest = (1 if algo == "blake2s" else 2) + (entry == "nodes")
+            if len(loops) == nest and algo == "blake2s":
                 fixed, per = comb(whole, loops[0], -1), loops[0]
-            elif algo == "blake2s" and entry == "node" and not loops:
-                fixed, per = zero, whole
-            elif algo == "keccak256" and entry == "leaf" and len(loops) == 2:
-                inner, outer = loops
+            elif len(loops) == nest:
+                inner, outer = loops[:2]
                 fixed, per = comb(whole, outer, -1), comb(outer, inner, 23)
-            elif algo == "keccak256" and entry == "node" and len(loops) == 1:
-                fixed, per = comb(whole, loops[0], -1), comb(zero, loops[0], 24)
             else:
                 raise AssertionError("sass %s/%s: %d loops, not the kernel's "
                                      "structure" % (algo, entry, len(loops)))
@@ -713,8 +720,13 @@ def byte_bound(algo, shape):
     each 32-byte digest written, or read as a child, once) over the memory
     rate, or the hash's own instructions (`byte_algo_ops`) at the card's
     rates: 64 thread-instructions a clock on an SM for the ALU pipe, 128
-    issue slots in all, whichever takes longest. shape: ("leaf", k, m) or
-    ("node", m)."""
+    issue slots in all, whichever takes longest. shape: ("leaf", k, m),
+    ("node", m) (one layer), or ("nodes", m, levels): the sum over its
+    layers, bound by what bounds its first (widest) layer."""
+    if shape[0] == "nodes":
+        parts = [byte_bound(algo, ("node", shape[1] >> j))
+                 for j in range(shape[2])]
+        return sum(p[0] for p in parts), parts[0][1]
     if shape[0] == "leaf":
         k, m = shape[1:]
         nbytes = k * m * 8 + m * 32
@@ -733,13 +745,16 @@ def byte_sass_ms(algo, shape):
     split between the pipes included) takes at the same issue rates, the
     FMA pipe also at 64 a clock."""
     if shape[0] == "leaf":
-        hashes, blocks = shape[2], BYTE_BLOCKS[algo](shape[1])
-    else:
-        hashes, blocks = shape[1] // 2, 1
+        threads = hashes = shape[2]
+        blocks = BYTE_BLOCKS[algo](shape[1])
+    else:  # a thread a first-level parent; a hash a parent of any level
+        threads, blocks = shape[1] // 2, 1
+        hashes = shape[1] - (shape[1] >> shape[2])
     c = BYTE_SASS[(algo, shape[0])]
-    per_hash = {p: c["fixed"][p] + blocks * c["per_block"][p] for p in PIPES}
-    return hashes * max(per_hash["alu"], per_hash["fma"],
-                        per_hash["all"] / 2) / H100_INT_PER_S * 1e3
+    counts = {p: threads * c["fixed"][p] + hashes * blocks * c["per_block"][p]
+              for p in PIPES}
+    return max(counts["alu"], counts["fma"],
+               counts["all"] / 2) / H100_INT_PER_S * 1e3
 
 
 def byte_input(rng, shape):
@@ -751,17 +766,51 @@ def byte_input(rng, shape):
                                     dtype=np.uint64), "cuda")
 
 
+def check_node_layers(algo, cur, cap):
+    """`node_layers` bit-equal to the plain chain, layer by layer, in the
+    launches `node_launches` plans; returns the error."""
+    import torch
+    from boojum_tpu_torch.hash import device_bytes_hash as dbh
+    before = dbh.NODE_LAUNCHES[algo]
+    got = dbh.node_layers(cur, algo, cap)
+    launches = dbh.NODE_LAUNCHES[algo] - before
+    want = dbh.node_layers_plain(cur, algo, cap)
+    what = "%s node_layers m=%d cap=%d" % (algo, cur.shape[1], cap)
+    if [g.shape for g in got] != [w.shape for w in want] or \
+            launches != len(dbh.node_launches(cur.shape[1], len(want))):
+        raise AssertionError("%s: layers %s, %d launches" % (
+            what, [tuple(g.shape) for g in got], launches))
+    if not got:
+        return 0.0
+    flat = [torch.cat([t.reshape(-1) for t in ts]) for ts in (got, want)]
+    return require_equal(flat[0], flat[1], what)
+
+
 def time_byte(rng, algo, shape, plain=False):
-    """A K8 / K9 entry at one shape: bit-equal to its plain version, then
-    timed."""
+    """A K8 / K9 entry at one shape, ("leaf", k, m) or ("nodes", m, levels)
+    (`node_layers` of m digests to m >> levels: one launch of a prove, or a
+    whole tree): bit-equal to its plain version, then timed."""
     from boojum_tpu_torch.hash import device_bytes_hash as dbh
     x = byte_input(rng, shape)
-    fn = dbh.leaf_hashes if shape[0] == "leaf" else dbh.node_layer
-    plain_fn = dbh._PLAIN[algo][0 if shape[0] == "leaf" else 1]
-    err = require_equal(fn(x, algo), plain_fn(x), "%s %s" % (algo, shape))
-    res = dict(err=err, ms=cuda_ms(lambda: fn(x, algo), 20))
+    if shape[0] == "leaf":
+        def fn():
+            return dbh.leaf_hashes(x, algo)
+
+        def plain_fn():
+            return dbh._PLAIN[algo][0](x)
+        err = require_equal(fn(), plain_fn(), "%s %s" % (algo, shape))
+    else:
+        cap = shape[1] >> shape[2]
+
+        def fn():
+            return dbh.node_layers(x, algo, cap)
+
+        def plain_fn():
+            return dbh.node_layers_plain(x, algo, cap)
+        err = check_node_layers(algo, x, cap)
+    res = dict(err=err, ms=cuda_ms(fn, 20))
     if plain:
-        res["plain_ms"] = cuda_ms(lambda: plain_fn(x), 1)
+        res["plain_ms"] = cuda_ms(plain_fn, 1)
     res["bound_ms"], res["bound_by"] = byte_bound(algo, shape)
     res["sass_ms"] = byte_sass_ms(algo, shape)
     log("%s %s %s: bit-equal, %.4f ms kernel%s, bound %.4f ms (%s), %.1f%% "
@@ -773,12 +822,25 @@ def time_byte(rng, algo, shape, plain=False):
     return res
 
 
+# (m, cap) of the `node_layers` checks: small and odd-stopping widths, every
+# tree a prove builds (cap 16), and caps 1 and 4
+NODE_CHECKS = ((2, 1), (32, 1), (1000, 1), (1 << 19, 16), (1 << 16, 16),
+               (1 << 13, 16), (1 << 10, 16), (1 << 7, 16), (1 << 4, 16),
+               (1 << 19, 1), (1 << 19, 4), (1 << 12, 4))
+# the kernels-line shape of `*_node_layers`: a 2^19-leaf tree to its cap of
+# 16, the widest a prove builds (two launches)
+NODE_ROW = ("nodes", 1 << 19, 15)
+
+
 def check_bytes_hash(rng):
-    """K8 and K9: every entry bit-equal to its plain version at the
+    """K8 and K9: the leaf entry bit-equal to its plain version at the
     block-boundary widths (k = 8, 16: whole Blake2s blocks; 17, 34: the
     Keccak pad in a block of its own) on a small m, on a strided view, and
-    at the shapes of the rows, (93, 2^19) leaves (the flagship's witness
-    oracle) and m = 2^19 nodes, timed with their plain versions. Returns
+    at the row's shape, (93, 2^19) (the flagship's witness oracle); the node
+    entry, `node_layers`, bit-equal to the plain per-layer chain in the
+    launches it plans at each of `NODE_CHECKS` and at the row's shape, a
+    2^19-leaf tree to cap 16 (two launches); both rows timed with their
+    plain versions. Returns
     {entry name: (largest error, timing of the row's shape)}."""
     out = {}
     for algo in BYTE_LIBS:
@@ -795,16 +857,14 @@ def check_bytes_hash(rng):
                                   "%s leaf on a strided view" % algo))
         t = time_byte(rng, algo, ("leaf", 93, 1 << 19), plain=True)
         out["%s_leaf_hashes" % algo] = (max(errs + [t["err"]]), t)
-        errs = []
-        for m in (2, 32, 1000):
-            x = byte_input(rng, ("node", m))
-            errs.append(require_equal(dbh.node_layer(x, algo),
-                                      dbh._PLAIN[algo][1](x),
-                                      "%s node m=%d" % (algo, m)))
-        t = time_byte(rng, algo, ("node", 1 << 19), plain=True)
-        out["%s_node_layer" % algo] = (max(errs + [t["err"]]), t)
+        errs = [check_node_layers(algo, byte_input(rng, ("node", m)), cap)
+                for m, cap in NODE_CHECKS]
+        t = time_byte(rng, algo, NODE_ROW, plain=True)
+        out["%s_node_layers" % algo] = (max(errs + [t["err"]]), t)
         log("%s: leaf hashes bit-equal at k = 1, 8, 16, 17, 34, 93 and a "
-            "strided view; node layer at m = 2, 32, 1000, 2^19" % algo)
+            "strided view; node_layers bit-equal to the plain chain at "
+            "(m, cap) %s and at %s" % (
+                algo, list(NODE_CHECKS), NODE_ROW))
     return out
 
 
@@ -848,9 +908,9 @@ def read_counts():
                 ntt_small=pn.LAUNCHES, sha256_witness=sw.LAUNCHES,
                 poseidon_sponge=poseidon.LAUNCHES,
                 blake2s_leaf_hashes=dbh.LEAF_LAUNCHES["blake2s"],
-                blake2s_node_layer=dbh.NODE_LAUNCHES["blake2s"],
+                blake2s_node_layers=dbh.NODE_LAUNCHES["blake2s"],
                 keccak256_leaf_hashes=dbh.LEAF_LAUNCHES["keccak256"],
-                keccak256_node_layer=dbh.NODE_LAUNCHES["keccak256"],
+                keccak256_node_layers=dbh.NODE_LAUNCHES["keccak256"],
                 plain_on_cuda=mxu_ntt.PLAIN_CUDA_CALLS + pp.PLAIN_CUDA_CALLS
                 + pn.PLAIN_CUDA_CALLS + sw.PLAIN_CUDA_CALLS
                 + poseidon.PLAIN_CUDA_CALLS + dbh.PLAIN_CUDA_CALLS,
@@ -937,9 +997,9 @@ def ntt_path(k4):
 def per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
                     byte_shapes):
     """Holds every kernel shape one prove launched against its plain version,
-    times it and sums, per kernel, launches x time and launches x (time -
-    bound) over the prove. Returns the sums and each kernel's largest
-    error."""
+    times it and sums, per kernel, launches x time, launches x bound and
+    launches x (time - bound) over the prove. Returns the sums and each
+    kernel's largest error."""
     totals = collections.defaultdict(lambda: [0, 0.0, 0.0])
     errs = collections.defaultdict(float)
 
@@ -948,7 +1008,7 @@ def per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
         tot = totals[name]
         tot[0] += n
         tot[1] += n * t["ms"]
-        tot[2] += n * (t["ms"] - t["bound_ms"])
+        tot[2] += n * t["bound_ms"]
 
     for nb, n in sorted(k5_blocks.items()):
         log("per prove: sha256_witness nb=%d x %d" % (nb, n))
@@ -958,15 +1018,11 @@ def per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
         add("poseidon_sponge", n, time_k6(rng, shape))
     for (r, m, inverse, twmode, width), n in sorted(k1_shapes.items()):
         t = time_ntt_stage(rng, r, m, inverse, twmode, width or 256)
-        errs["ntt_stage"] = max(errs["ntt_stage"], t["err"])
         log("per prove: ntt_stage (R=%d, M=%d, inverse=%d, twmode=%d, W=%d) "
             "x %d: bit-equal, %.4f ms, bound %.4f ms (%s), %.1f%% of bound"
             % (r, m, inverse, twmode, width, n, t["ms"], t["bound_ms"],
                t["bound_by"], 100 * t["bound_ms"] / t["ms"]))
-        tot = totals["ntt_stage"]
-        tot[0] += n
-        tot[1] += n * t["ms"]
-        tot[2] += n * (t["ms"] - t["bound_ms"])
+        add("ntt_stage", n, t)
     names = {"permute": "poseidon2_permute", "leaf": "poseidon2_leaf_hashes",
              "node": "poseidon2_node_layer"}
     for shape, n in sorted(p2_shapes.items()):
@@ -977,23 +1033,20 @@ def per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
         else:
             x = rand_field(rng, (4, shape[1]))
         log("per prove: %s x %d" % (shape, n))
-        t = time_p2(shape, x)
-        errs[names[shape[0]]] = max(errs[names[shape[0]]], t["err"])
-        tot = totals[names[shape[0]]]
-        tot[0] += n
-        tot[1] += n * t["ms"]
-        tot[2] += n * (t["ms"] - t["bound_ms"])
+        add(names[shape[0]], n, time_p2(shape, x))
         del x
     for key, n in sorted(byte_shapes.items()):
         algo, shape = key[0], key[1:]
         name = "%s_%s" % (algo, "leaf_hashes" if shape[0] == "leaf"
-                          else "node_layer")
+                          else "node_layers")
         log("per prove: %s %s x %d" % (name, shape[1:], n))
         add(name, n, time_byte(rng, algo, shape))
     out = {k: dict(launches=v[0], sum_ms=round(v[1], 4),
-                   lost_ms=round(v[2], 4)) for k, v in totals.items()}
-    log("per prove, by kernel (launches, sum of launches x time, sum of "
-        "launches x (time - bound)): " + json.dumps(out))
+                   bound_ms=round(v[2], 4), lost_ms=round(v[1] - v[2], 4))
+           for k, v in totals.items()}
+    log("per prove, by kernel (launches, sum of launches x time, of "
+        "launches x bound, and of launches x (time - bound)): "
+        + json.dumps(out))
     return out, errs
 
 
@@ -1292,16 +1345,29 @@ def byte_flagship(ctx, kind, warm):
                                  "(sha256 %s)" % (kind, what, digest))
         return digest
 
+    def check_node_launches(shapes, what):
+        n = sum(c for key, c in shapes.items() if key[1] == "nodes")
+        log("%s %s prove: %d %s_node_layers launches (at most %d): %s" % (
+            kind, what, n, kind, MAX_NODE_LAUNCHES, json.dumps(sorted(
+                (key[2:], c) for key, c in shapes.items()
+                if key[1] == "nodes"))))
+        if n > MAX_NODE_LAUNCHES:
+            raise AssertionError("a %s %s prove launched %s_node_layers %d "
+                                 "times, more than %d" % (
+                                     kind, what, kind, n, MAX_NODE_LAUNCHES))
+
     before = dbh.SHAPES.copy()
     proof, t_cold = prove()
     shapes = dbh.SHAPES - before
     digest = check(proof, "cold")
+    check_node_launches(shapes, "cold")
     times = []
     for _ in range(warm):
         before = dbh.SHAPES.copy()
         proof, t = prove()
         shapes = dbh.SHAPES - before
         check(proof, "warm")
+        check_node_launches(shapes, "warm")
         times.append(t)
     counts = read_counts()
     log("%s flagship: create_device_setup %.2f s, prove cold %.3f s%s; "
@@ -1311,7 +1377,7 @@ def byte_flagship(ctx, kind, warm):
             ref["proof_json_sha256"]))
     log("%s flagship launches (setup + %d proves): %s" % (
         kind, 1 + warm, json.dumps(counts)))
-    leaf, node = "%s_leaf_hashes" % kind, "%s_node_layer" % kind
+    leaf, node = "%s_leaf_hashes" % kind, "%s_node_layers" % kind
     for name in ("ntt_stage", "sha256_witness", leaf, node):
         if counts[name] <= 0:
             raise AssertionError("%s never launched on the %s path"
@@ -1491,7 +1557,7 @@ def main():
     for algo, path_counts in (("blake2s", b2s_counts),
                               ("keccak256", kec_counts)):
         for entry, name in (("leaf", "%s_leaf_hashes" % algo),
-                            ("node", "%s_node_layer" % algo)):
+                            ("node", "%s_node_layers" % algo)):
             err, t = byte_checks[name]
             kernels.append(row(name, BYTE_SOURCES[algo],
                                BYTE_REPLACES[(algo, entry)],

@@ -9,6 +9,9 @@ transcripts' challenges; the grinds' nonces, also through the worker
 pool. The wrappers launch a kernel or raise on a tensor that is not on
 the CPU (checked on the ``meta`` device)."""
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,8 @@ from boojum_tpu.hash import sponge as ref_sponge
 from boojum_tpu.hash.merkle import AlgebraicMerkleTree as RefAlgebraicTree
 from boojum_tpu.hash.merkle import BytesMerkleTree as RefBytesTree
 from boojum_tpu.prover import pow as ref_pow
+from boojum_tpu.prover.device_merkle import \
+    build_device_bytes_tree as ref_build_device_bytes_tree
 from boojum_tpu.transcript import make_transcript as ref_make_transcript
 from boojum_tpu_torch.field import goldilocks as gl
 from boojum_tpu_torch.hash import device_bytes_hash as dbh
@@ -61,8 +66,9 @@ def test_plain_nodes_equal_host_digests(algo):
                                             dtype=np.uint64)
     cur[:, 0] = 0xFFFFFFFF
     digests = dbh.digests_to_bytes(cur)
-    got = dbh.digests_to_bytes(gl.to_u64(dbh.node_layer(gl.from_u64(cur),
-                                                        algo)))
+    layers = dbh.node_layers(gl.from_u64(cur), algo, 32)
+    assert len(layers) == 1
+    got = dbh.digests_to_bytes(gl.to_u64(layers[0]))
     assert got == [RefBytesTree._digest(algo, digests[2 * i] + digests[2 * i + 1])
                    for i in range(32)]
 
@@ -82,8 +88,244 @@ def test_plain_versions_equal_jax_traced(algo, k):
     assert np.array_equal(gl.to_u64(leaves), ref_leaves.astype(np.uint64))
     ref_nodes = np.asarray(node_fn(jnp.asarray(ref_leaves[:, 0::2]),
                                    jnp.asarray(ref_leaves[:, 1::2])))
-    assert np.array_equal(gl.to_u64(dbh.node_layer(leaves, algo)),
+    assert np.array_equal(gl.to_u64(dbh.node_layers(leaves, algo, 2)[0]),
                           ref_nodes.astype(np.uint64))
+
+
+def _plain_chain(cur, algo, cap):
+    """The per-layer plain chain: one plain node layer at a time while the
+    width is above the cap and even."""
+    layers = []
+    while cur.shape[1] > cap and cur.shape[1] % 2 == 0:
+        cur = dbh._PLAIN[algo][1](cur)
+        layers.append(cur)
+    return layers
+
+
+_JAX_TREES = {}
+
+
+def _jax_tree_layers(algo):
+    """The JAX `build_device_bytes_tree` of 32 leaves of 2 elements, cap 1:
+    its leaf layer and its 5 node layers as u64 word planes (compiled once
+    an algo; a smaller cap's tree is the prefix of these layers)."""
+    if algo not in _JAX_TREES:
+        a = _cols(300, 2, 32)
+        tree = ref_build_device_bytes_tree(ref_gl.from_u64(a), 1, algo)
+        _JAX_TREES[algo] = (a, [np.asarray(x).astype(np.uint64)
+                                for x in tree.layers])
+    return _JAX_TREES[algo]
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+@pytest.mark.parametrize("cap", [1, 4, 16])
+def test_node_layers_equal_plain_chain_and_jax_tree(algo, cap):
+    """`node_layers` on the CPU gives the per-layer plain chain and the JAX
+    `build_device_bytes_tree`'s node layers down to the cap, as exact u32
+    words."""
+    a, ref_layers = _jax_tree_layers(algo)
+    leaves = dbh.leaf_hashes(gl.from_u64(a), algo)
+    assert np.array_equal(gl.to_u64(leaves), ref_layers[0])
+    got = dbh.node_layers(leaves, algo, cap)
+    want = _plain_chain(leaves, algo, cap)
+    assert [g.shape[1] for g in got] == [32 >> j for j in
+                                         range(1, 6 - cap.bit_length() + 1)]
+    assert len(got) == len(want)
+    for g, w, r in zip(got, want, ref_layers[1:]):
+        assert torch.equal(g, w)
+        assert np.array_equal(gl.to_u64(g), r)
+
+
+def _cuda_int(path, name):
+    text = path.read_text()
+    return int(re.search(r"constexpr int %s = (\d+);" % name, text).group(1))
+
+
+def _emulate_launch(src, src_off, out, at, m, levels, tickets, threads, stage,
+                    node, writes, rng):
+    """One launch of `<algo>_node_layers` as csrc/byte_tree.cuh schedules
+    it, on flat u64 arrays: `src` holds the (8, m) input layer from
+    `src_off`, `out` receives the `levels` layers from `at`, `tickets` are
+    the launch's hand-on counters;
+    `node` hashes (8, 2p) sibling pairs into (8, p) parents; `writes`
+    counts the stores to each element of `out`. The blocks of a stage take
+    their tickets in an order drawn from `rng`; a block that goes on reads
+    only digests its own group wrote."""
+    group = 1 << stage  # 2 THREADS >> STAGE digests a block, 2 THREADS a group
+    assert threads >> (stage - 1) >= 32  # a full stage's levels fill warps
+    assert 1 <= levels < 63 and m >= 2 and m % (1 << levels) == 0  # valid
+    planes = np.arange(8)
+    owner = np.full(len(out), -1)  # the block of the stage that wrote it
+    width, done, ticket_off = m, 0, 0
+    blocks = -(-m // (2 * threads))  # byte_tree::grid: stage 0's blocks
+    while True:
+        assert blocks == -(-width // (2 * threads))
+        slot = np.zeros((blocks, 8, threads), np.uint64)  # slot[8][T] a block
+        n = [min(2 * threads, width - 2 * threads * b) for b in range(blocks)]
+        w = width
+        for j in range(min(stage, levels - done)):
+            half = w >> 1
+            pairs, who = [], []
+            for b in range(blocks):
+                first = 2 * threads * b
+                for t in range(n[b] >> 1):  # the threads with a parent
+                    assert t < threads
+                    if j == 0:  # 16-byte loads from the stage's input layer
+                        a = src_off + planes * w + first + 2 * t
+                        if done:  # written by this block's group
+                            assert (owner[a] // group == b).all()
+                            assert (owner[a + 1] // group == b).all()
+                        pairs.append((src[a], src[a + 1]))
+                    else:  # slots 2t, 2t + 1
+                        assert 2 * t + 1 < threads
+                        pairs.append((slot[b, :, 2 * t],
+                                      slot[b, :, 2 * t + 1]))
+                    who.append((b, first, t))
+            # __syncthreads(): every child is read before a slot is written
+            children = np.empty((8, 2 * len(pairs)), np.uint64)
+            children[:, 0::2] = np.stack([lr[0] for lr in pairs], 1)
+            children[:, 1::2] = np.stack([lr[1] for lr in pairs], 1)
+            parents = gl.to_u64(node(gl.from_u64(children)))
+            for i, (b, first, t) in enumerate(who):
+                slot[b, :, t] = parents[:, i]
+                a = at + planes * half + (first >> (j + 1)) + t
+                out[a] = parents[:, i]
+                owner[a] = b
+                writes[a] += 1
+            # __syncthreads(); src = out; out += 8 * half
+            src, src_off = out, at
+            at += 8 * half
+            w = half
+            n = [nb >> 1 for nb in n]
+        done += min(stage, levels - done)
+        if done == levels:
+            return ticket_off
+        # every block takes a ticket of its group's counter, in any order;
+        # the one that draws the group's last goes on as block b / GROUP
+        groups = -(-blocks // group)
+        goes_on = {}
+        for b in rng.permutation(blocks):
+            g = b // group
+            members = min(group, blocks - g * group)
+            if tickets[ticket_off + g] == members - 1:
+                goes_on[g] = b
+            tickets[ticket_off + g] += 1
+        assert sorted(goes_on) == list(range(groups))
+        ticket_off += groups
+        blocks, width = groups, w
+
+
+def _tickets(m, levels, threads, stage):
+    """Hand-on counters of a launch: a group of 2^stage blocks of every
+    stage but the last."""
+    n = done = 0
+    while done + stage < levels:
+        blocks = -(-m // (2 * threads))
+        n += -(-blocks // (1 << stage))
+        m >>= stage
+        done += stage
+    return n
+
+
+def _emulate_node_layers(cur, algo, cap, threads, stage, rng, plan=None):
+    """`node_layers`' CUDA branch with its launches emulated: the layers are
+    views of `node_buffer`'s one buffer, each launch of ``plan`` (by
+    default `node_launches`') reads the last layer the one before it wrote
+    and takes the next slice of the hand-on counters (`node_tickets` of
+    them at the kernel's own block size; counted here for ``threads``).
+    Returns the layers, the store count of every element, and the counters
+    after the launches."""
+    m = cur.shape[1]
+    widths = dbh.node_widths(m, cap)
+    layers = dbh.node_buffer(cur, widths)
+    if not widths:
+        return [], np.zeros(0, int), np.zeros(0, int)
+    if plan is None:
+        plan = dbh.node_launches(m, len(widths))
+    assert sum(lv for _, lv in plan) == len(widths)
+    assert layers[0].storage_offset() == 0
+    total = sum(8 * w for w in widths)
+    buf = np.zeros(total, np.uint64)
+    writes = np.zeros(total, int)
+    counts = [_tickets(w, lv, threads, stage) for w, lv in plan]
+    if threads == dbh.NODE_THREADS:
+        assert counts == [dbh.node_tickets(w, lv) for w, lv in plan]
+    tickets = np.zeros(sum(counts), int)
+    src, src_off, done, first = gl.to_u64(cur).reshape(-1), 0, 0, 0
+    for (w, levels), n in zip(plan, counts):
+        assert w == (m if done == 0 else widths[done - 1])
+        used = _emulate_launch(src, src_off, buf,
+                               layers[done].storage_offset(), w, levels,
+                               tickets[first:first + n], threads, stage,
+                               dbh._PLAIN[algo][1], writes, rng)
+        assert used == n
+        done += levels
+        first += n
+        src, src_off = buf, layers[done - 1].storage_offset()
+    return [gl.from_u64(buf[v.storage_offset():][:8 * v.shape[1]]
+                        .reshape(8, v.shape[1])) for v in layers], \
+        writes, tickets
+
+
+def test_node_launches_plan_a_prove():
+    """The launches of a prove's byte trees: two for each 2^19-leaf tree
+    (its first stage of 3 layers, then 12), one for each smaller tree, none
+    for the 2^4-leaf tree at cap 16: 10 node launches a prove."""
+    plans = {m: dbh.node_launches(m, len(dbh.node_widths(m, 16)))
+             for m in (1 << 19, 1 << 16, 1 << 13, 1 << 10, 1 << 7, 1 << 4)}
+    assert plans == {1 << 19: [(1 << 19, 3), (1 << 16, 12)],
+                     1 << 16: [(1 << 16, 12)], 1 << 13: [(1 << 13, 9)],
+                     1 << 10: [(1 << 10, 6)], 1 << 7: [(1 << 7, 3)],
+                     1 << 4: []}
+    per_prove = 3 * len(plans[1 << 19]) + sum(
+        len(plans[m]) for m in (1 << 16, 1 << 13, 1 << 10, 1 << 7, 1 << 4))
+    assert per_prove == 10
+    assert dbh.node_launches(1 << 18, 3) == [(1 << 18, 3)]
+    assert dbh.node_launches(1 << 18, 4) == [(1 << 18, 3), (1 << 15, 1)]
+
+
+SCHEDULE_CASES = [(1 << e, 1) for e in range(1, 13)] + [
+    (1000, 1),  # stops where the width turns odd: 500, 250, 125
+    (3 << 10, 1),  # 10 levels down to width 3, a ragged last group
+    (1 << 12, 4), (1 << 12, 16), (96, 16), (16, 16)]
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+@pytest.mark.parametrize("m,cap,threads,split", [
+    case + (None, False) for case in SCHEDULE_CASES] + [
+    (1 << 12, 1, 128, False), (3 << 10, 1, 128, False),
+    (1000, 1, 128, False), (1 << 12, 1, None, True), (1 << 12, 16, None, True),
+    (3 << 10, 1, None, True)])
+def test_kernel_schedule_matches_plain_chain(algo, m, cap, threads, split):
+    """Emulates csrc/byte_tree.cuh at its own THREADS (256; also at 128 a
+    block, its first design) and STAGE (3): each block's subtree of a
+    stage, the thread that hashes each pair at each level, the shared slots
+    read and written in place between the barriers, the hand-on tickets
+    (every group's counter counts its blocks once and one block of each
+    goes on, whatever order they arrive in), the cap and odd-width stops,
+    and the write offset of each layer in the one buffer, also split into
+    two launches as `node_launches` splits a tree above 2^17 digests (its
+    first stage alone, then the rest). Every element of the buffer is
+    stored once, and the layers equal the per-layer plain chain's."""
+    cuh = pathlib.Path(dbh.__file__).parents[1] / "csrc" / "byte_tree.cuh"
+    stage = _cuda_int(cuh, "STAGE")
+    assert (_cuda_int(cuh, "THREADS"), stage) == \
+        (dbh.NODE_THREADS, dbh.NODE_STAGE) == (256, 3)
+    assert dbh.NODE_GROUP == 8
+    cur = gl.from_u64(np.random.default_rng(m + cap).integers(
+        0, 1 << 32, (8, m), dtype=np.uint64))
+    n = len(dbh.node_widths(m, cap))
+    plan = [(m, stage), (m >> stage, n - stage)] if split else None
+    got, writes, tickets = _emulate_node_layers(
+        cur, algo, cap, threads or dbh.NODE_THREADS, stage,
+        np.random.default_rng(m), plan)
+    assert (writes == 1).all()
+    assert (tickets >= 1).all() and (tickets <= dbh.NODE_GROUP).all()
+    want = _plain_chain(cur, algo, cap)
+    assert len(want) == n
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("algo", ALGOS)
@@ -261,7 +503,8 @@ def test_wrappers_raise_without_a_kernel(algo, entry):
     reaches the plain version."""
     calls = dbh.PLAIN_CUDA_CALLS
     x = torch.empty((8, 16), dtype=torch.int64, device="meta")
-    fn = dbh.leaf_hashes if entry == "leaf" else dbh.node_layer
+    fn = dbh.leaf_hashes if entry == "leaf" else \
+        (lambda cur, algo: dbh.node_layers(cur, algo, 1))
     with pytest.raises(RuntimeError, match="no kernel"):
         fn(x, algo)
     with pytest.raises(TypeError):

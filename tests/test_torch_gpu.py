@@ -5,8 +5,9 @@ of the redesigned kernels bit-equal to its plain version on the card
 every template instance, with and without its cross twiddle; the three
 Poseidon2 entries at the trees' shapes; the SHA-256 witness chain at 1 and 3
 blocks; the Poseidon sponge's absorb and permute; the Blake2s and
-Keccak-256 leaf and node entries at the block-boundary widths and the
-flagship's widest leaf), the device witness program of a small SHA-256
+Keccak-256 leaf entries at the block-boundary widths and the flagship's
+widest leaf, and their node-layers entries against the plain per-layer
+chain), the device witness program of a small SHA-256
 circuit on the card against the CPU, and a small Blake2s and Keccak-256
 proof on the card against the CPU. It skips
 without a GPU. This file
@@ -193,11 +194,23 @@ def test_byte_leaf_hashes_equal_plain(cuda, algo, k, m):
 
 
 @pytest.mark.parametrize("algo", ["blake2s", "keccak256"])
-@pytest.mark.parametrize("m", [2, 32, 1 << 16])
-def test_byte_node_layer_equals_plain(cuda, algo, m):
+@pytest.mark.parametrize("m,cap", [(2, 1), (32, 1), (1000, 1), (1 << 16, 16),
+                                   (1 << 16, 1), (1 << 12, 4), (16, 16),
+                                   (1 << 18, 16)])
+def test_byte_node_layers_equal_plain(cuda, algo, m, cap):
+    """The kernel's layers against the plain per-layer chain, in the
+    launches `node_launches` plans: 1000 stops at the odd width 125, 16 at
+    cap 16 has none, 2^18 takes two launches."""
     cur = gl.from_u64(np.random.default_rng(m).integers(
         0, 1 << 32, (8, m), dtype=np.uint64), cuda)
-    assert torch.equal(dbh.node_layer(cur, algo), dbh._PLAIN[algo][1](cur))
+    launches = dbh.NODE_LAUNCHES[algo]
+    got = dbh.node_layers(cur, algo, cap)
+    assert dbh.NODE_LAUNCHES[algo] - launches == \
+        len(dbh.node_launches(m, len(got)))
+    want = dbh.node_layers_plain(cur, algo, cap)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("nb", [1, 3, 33, 129])

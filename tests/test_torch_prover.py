@@ -83,7 +83,7 @@ def build_small_circuit(pkg: str, rng, n_fma=30):
 @pytest.fixture(scope="module")
 def both():
     """Both packages' circuits, setups and artifacts; reference host proofs
-    for both transcripts, made once."""
+    for both transcripts, each made once at its first use."""
     ref_cs = build_small_circuit("boojum_tpu", np.random.default_rng(11))
     cs = build_small_circuit("boojum_tpu_torch", np.random.default_rng(11))
     ref_sb = ref_create_base_setup(ref_cs)
@@ -92,11 +92,22 @@ def both():
                                   "poseidon2")
     art = create_device_setup(cs, sb, ProofConfig(**CFG), "poseidon2",
                               device="cpu")
-    ref_proofs = {kind: prove(ref_cs, ref_art, RefProofConfig(**CFG), kind,
-                              "poseidon2")
-                  for kind in ("poseidon", "poseidon2")}
+    ref_proofs = _LazyProofs(lambda kind: prove(
+        ref_cs, ref_art, RefProofConfig(**CFG), kind, "poseidon2"))
     return dict(ref_cs=ref_cs, cs=cs, ref_sb=ref_sb, sb=sb, ref_art=ref_art,
                 art=art, ref_proofs=ref_proofs)
+
+
+class _LazyProofs(dict):
+    """kind -> the reference host proof, made at its first use."""
+
+    def __init__(self, make):
+        super().__init__()
+        self._make = make
+
+    def __missing__(self, kind):
+        self[kind] = self._make(kind)
+        return self[kind]
 
 
 def test_setup_arrays_and_vk_match_reference(both):
@@ -109,11 +120,24 @@ def test_setup_arrays_and_vk_match_reference(both):
     assert vk_to_json(both["art"].vk) == vk_to_json(both["ref_art"].vk)
 
 
+@pytest.fixture(scope="module")
+def warm_prover(both):
+    """A CPU prover after its first prove (Poseidon transcript, host
+    transcript), which filled its device caches; the proof rides along."""
+    prover = DeviceProver(both["cs"], both["art"], ProofConfig(**CFG),
+                          device="cpu")
+    return prover, prover.prove("poseidon", "poseidon2")
+
+
 @pytest.mark.parametrize("kind", ["poseidon", "poseidon2"])
-def test_proof_is_byte_identical_and_verifies(both, kind):
-    cfg = ProofConfig(**CFG)
-    proof = DeviceProver(both["cs"], both["art"], cfg, device="cpu").prove(
-        kind, "poseidon2")
+def test_proof_is_byte_identical_and_verifies(both, warm_prover, kind):
+    """A fresh prover's first proof (for the Poseidon transcript, the one
+    `warm_prover` made) equals the reference's and verifies."""
+    if kind == "poseidon":
+        proof = warm_prover[1]
+    else:
+        proof = DeviceProver(both["cs"], both["art"], ProofConfig(**CFG),
+                             device="cpu").prove(kind, "poseidon2")
     assert proof_to_json(proof) == ref_proof_to_json(both["ref_proofs"][kind])
     assert verify(both["ref_art"].vk, proof, kind, "poseidon2")
 
@@ -193,15 +217,14 @@ def test_fetch_collector_flushes_once():
     assert got["g"].tolist() == [[2, 0], [5, 3]]
 
 
-def test_device_transcript_ops_and_one_query_fetch(both, monkeypatch):
+def test_device_transcript_ops_and_one_query_fetch(both, warm_prover,
+                                                   monkeypatch):
     """A warm prove with the device transcript dispatches at most 1.5 %
     more torch ops than with the host transcript (its challenges are split
     once when drawn and its power tables step in one multiply a doubling);
     in both modes the query phase comes to the host in ONE collector flush,
     and the proof stays the reference's."""
-    cfg = ProofConfig(**CFG)
-    prover = DeviceProver(both["cs"], both["art"], cfg, device="cpu")
-    prover.prove("poseidon", "poseidon2")  # fills the device caches
+    prover = warm_prover[0]  # its first prove filled the device caches
     want = ref_proof_to_json(both["ref_proofs"]["poseidon"])
     ops = {}
     for mode in (False, True):

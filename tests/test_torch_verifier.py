@@ -41,27 +41,47 @@ def circuits():
         cs=build_small_circuit("boojum_tpu_torch", np.random.default_rng(11)))
 
 
+class _Proofs:
+    """Per transcript kind, built at its first use: (reference VK, port VK,
+    reference proof, port proof); each hasher's setups made once."""
+
+    def __init__(self, circuits):
+        self.ref_cs, self.cs = circuits["ref_cs"], circuits["cs"]
+        self._sb = None
+        self._arts = {}
+        self._kinds = {}
+
+    def _setups(self, hasher):
+        if self._sb is None:
+            self._sb = (ref_create_base_setup(self.ref_cs),
+                        create_base_setup(self.cs))
+        if hasher not in self._arts:
+            ref_sb, sb = self._sb
+            self._arts[hasher] = (
+                create_setup_and_vk(self.ref_cs, ref_sb, RefProofConfig(**CFG),
+                                    hasher),
+                create_device_setup(self.cs, sb, ProofConfig(**CFG), hasher,
+                                    device="cpu"))
+        return self._arts[hasher]
+
+    def __getitem__(self, kind):
+        if kind not in self._kinds:
+            hasher = KINDS[kind]
+            ref_art, art = self._setups(hasher)
+            self._kinds[kind] = (
+                ref_art.vk, art.vk,
+                prove(self.ref_cs, ref_art, RefProofConfig(**CFG), kind,
+                      hasher),
+                DeviceProver(self.cs, art, ProofConfig(**CFG),
+                             device="cpu").prove(kind, hasher))
+        return self._kinds[kind]
+
+
 @pytest.fixture(scope="module")
 def proofs(circuits):
     """Per transcript kind: (reference VK, port VK, reference proof, port
-    proof); each hasher's setups made once."""
-    ref_cs, cs = circuits["ref_cs"], circuits["cs"]
-    ref_sb, sb = ref_create_base_setup(ref_cs), create_base_setup(cs)
-    arts = {}
-    for hasher in sorted(set(KINDS.values())):
-        arts[hasher] = (
-            create_setup_and_vk(ref_cs, ref_sb, RefProofConfig(**CFG), hasher),
-            create_device_setup(cs, sb, ProofConfig(**CFG), hasher,
-                                device="cpu"))
-    out = {}
-    for kind, hasher in KINDS.items():
-        ref_art, art = arts[hasher]
-        out[kind] = (
-            ref_art.vk, art.vk,
-            prove(ref_cs, ref_art, RefProofConfig(**CFG), kind, hasher),
-            DeviceProver(cs, art, ProofConfig(**CFG), device="cpu").prove(
-                kind, hasher))
-    return out
+    proof), each kind built lazily at its first use."""
+    return _Proofs(circuits)
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
