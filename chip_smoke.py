@@ -29,8 +29,8 @@ after:
   `scripts/torch_reference_digest.py` from the JAX package). The default
   prove must take the device witness program (`sha256_witness` once a
   prove, `materialize_witness_columns` never) and the device transcript
-  (`poseidon_sponge` more than once a prove). Three warm proves with the
-  device transcript alternate with three with the host transcript
+  (`poseidon_sponge` more than once a prove). Two warm proves with the
+  device transcript alternate with two with the host transcript
   (`device_transcript=False`), which must give the same digest; both sets
   of times are printed. Each mode's stage split comes from synced proves
   alternated with the other mode's, and each stage's kernel count and
@@ -43,7 +43,8 @@ after:
   times it and prints, per kernel, the sum over a prove of launches x time
   and of launches x (time - bound) (likewise the byte hashes' shapes of a
   Blake2s and a Keccak-256 prove, a `*_node_layers` launch bound by the
-  summed bound of its layers);
+  summed bound of its layers, and the shapes of a Keccak-256 circuit prove
+  and of a recursion outer prove, each shape checked and timed once);
 - the non-recursive flagship: the same circuit in the reference's own
   non-recursive configuration, the Blake2s transcript (on the host) and
   Blake2s trees (K8), LDE 8, cap 16, security 100, no PoW: setup, one cold
@@ -54,9 +55,33 @@ after:
   `flagship_keccak256_proof_digest.json`. Both must launch their tree
   kernels, `ntt_stage` and `sha256_witness`, and no plain version, and
   no prove may launch `*_node_layers` more than 16 times;
+- the Keccak-256 circuit (BASELINE config 3): the 1 kB Keccak-256 gadget
+  circuit (2^16 rows), Poseidon transcript, Poseidon2 trees: synthesis,
+  setup, one cold and two warm proves, each proof's digest equal to
+  `boojum_tpu_torch/data/keccak256_1kB_proof_digest.json`, the last with
+  its synchronizing calls counted (at most 3), then one synced prove with
+  its torch ops counted by stage (`scripts/torch_profile_flagship.py
+  --config keccak256` profiles it). The proves must take the device
+  witness program (`materialize_witness_columns` never called) and launch
+  `ntt_stage`, the Poseidon2 leaf and node entries and `poseidon_sponge`,
+  and no plain version;
+- the recursion configuration (BASELINE config 2): the inner proof of a
+  2^5-row circuit with two public inputs and the outer proof of the circuit
+  that verifies it (4096 rows, 132 copy columns, degree 8, flattened
+  Poseidon and Poseidon2 gates), both made on the card through the host
+  witness path, as in the reference, and held to the digests in
+  `boojum_tpu_torch/data/recursion_outer_proof_digest.json`: the outer
+  circuit's synthesis and `check_if_satisfied`, its setup, a cold prove
+  with its torch ops counted by stage, a warm prove timed and a warm prove
+  counted (`scripts/torch_profile_flagship.py --config recursion_outer`
+  profiles it; `torch.profiler` takes minutes on a prove of a million
+  launches); the outer circuit over an inner proof with one value at z
+  bumped must be unsatisfied;
 - the verifier: the port's `verify` (host code, no launch) accepts the
-  Poseidon, Blake2s and Keccak-256 flagship proofs, each timed, and rejects
-  the Blake2s proof with one witness leaf element flipped;
+  Poseidon, Blake2s and Keccak-256 flagship proofs, the Keccak-256 circuit
+  proof and the recursion configuration's inner and outer proofs, each
+  timed, and rejects the Blake2s proof with one witness leaf element
+  flipped;
 - the standalone NTT: runs `pallas_ntt.ntt_any` at (2^24, 8), whose output
   must equal the digest in `boojum_tpu_torch/data/ntt_2e24_digest.json`
   (made by `scripts/torch_reference_ntt_digest.py`) and the radix-256 route
@@ -103,7 +128,7 @@ P2_REPLACES = "boojum_tpu/hash/pallas_poseidon2.py:43"
 POSEIDON_MULS = P2_MULS
 K5_REPLACES = "boojum_tpu/gadgets/sha256.py:545"
 # warm flagship proves in each transcript mode, alternated
-WARM_ROUNDS = 3
+WARM_ROUNDS = 2
 # synced proves a mode, alternated, for the stage split of each mode
 PROFILE_ROUNDS = 1
 # most synchronizing calls a warm prove may make: the device transcript's
@@ -127,6 +152,9 @@ BYTE_LIBS = {"blake2s": "blake2s", "keccak256": "keccak"}
 H100_INT_PER_S = H100_IMAD_PER_S
 # warm proves of the Blake2s configuration
 BYTE_WARM_PROVES = 2
+# warm proves of the Keccak-256 circuit (the last one with its synchronizing
+# calls counted)
+KECCAK_WARM_PROVES = 2
 # most `*_node_layers` launches a byte-tree prove may make: it makes 10, two
 # for each 2^19-leaf tree and one for the 2^16, 2^13, 2^10 and 2^7 ones
 MAX_NODE_LAUNCHES = 16
@@ -928,9 +956,7 @@ def ntt_path(k4):
     from boojum_tpu_torch.ntt import ntt
     from boojum_tpu_torch.ntt import pallas_ntt as pn
 
-    with open(os.path.join(ROOT, "boojum_tpu_torch", "data",
-                           "ntt_2e24_digest.json")) as f:
-        ref = json.load(f)
+    ref = load_digest("ntt_2e24_digest.json")
     n, b = ref["shape"]
     log_n = n.bit_length() - 1
     x = gl.from_u64(np.random.default_rng(ref["seed"]).integers(
@@ -994,16 +1020,21 @@ def ntt_path(k4):
     return counts
 
 
-def per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
-                    byte_shapes):
-    """Holds every kernel shape one prove launched against its plain version,
-    times it and sums, per kernel, launches x time, launches x bound and
-    launches x (time - bound) over the prove. Returns the sums and each
-    kernel's largest error."""
+def per_prove_costs(rng, label, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
+                    byte_shapes, memo):
+    """Holds every kernel shape that ``label`` (one prove, or a setup)
+    launched against its plain version, times it and sums, per kernel,
+    launches x time, launches x bound and launches x (time - bound) over
+    it. A shape already in ``memo`` (checked and timed for an earlier
+    path) is taken from there. Returns the sums and each kernel's largest
+    error."""
     totals = collections.defaultdict(lambda: [0, 0.0, 0.0])
     errs = collections.defaultdict(float)
 
-    def add(name, n, t):
+    def add(name, n, shape, timing):
+        if (name, shape) not in memo:
+            memo[(name, shape)] = timing()
+        t = memo[(name, shape)]
         errs[name] = max(errs[name], t["err"])
         tot = totals[name]
         tot[0] += n
@@ -1011,42 +1042,48 @@ def per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
         tot[2] += n * t["bound_ms"]
 
     for nb, n in sorted(k5_blocks.items()):
-        log("per prove: sha256_witness nb=%d x %d" % (nb, n))
-        add("sha256_witness", n, time_k5(rng, nb))
+        log("per %s: sha256_witness nb=%d x %d" % (label, nb, n))
+        add("sha256_witness", n, nb, lambda: time_k5(rng, nb))
     for shape, n in sorted(k6_shapes.items()):
-        log("per prove: poseidon_sponge %s x %d" % (shape, n))
-        add("poseidon_sponge", n, time_k6(rng, shape))
-    for (r, m, inverse, twmode, width), n in sorted(k1_shapes.items()):
-        t = time_ntt_stage(rng, r, m, inverse, twmode, width or 256)
-        log("per prove: ntt_stage (R=%d, M=%d, inverse=%d, twmode=%d, W=%d) "
-            "x %d: bit-equal, %.4f ms, bound %.4f ms (%s), %.1f%% of bound"
-            % (r, m, inverse, twmode, width, n, t["ms"], t["bound_ms"],
-               t["bound_by"], 100 * t["bound_ms"] / t["ms"]))
-        add("ntt_stage", n, t)
+        log("per %s: poseidon_sponge %s x %d" % (label, shape, n))
+        add("poseidon_sponge", n, shape, lambda: time_k6(rng, shape))
+    for shape, n in sorted(k1_shapes.items()):
+        r, m, inverse, twmode, width = shape
+
+        def k1():
+            t = time_ntt_stage(rng, r, m, inverse, twmode, width or 256)
+            log("ntt_stage (R=%d, M=%d, inverse=%d, twmode=%d, W=%d): "
+                "bit-equal, %.4f ms, bound %.4f ms (%s), %.1f%% of bound"
+                % (r, m, inverse, twmode, width, t["ms"], t["bound_ms"],
+                   t["bound_by"], 100 * t["bound_ms"] / t["ms"]))
+            return t
+        log("per %s: ntt_stage %s x %d" % (label, shape, n))
+        add("ntt_stage", n, shape, k1)
     names = {"permute": "poseidon2_permute", "leaf": "poseidon2_leaf_hashes",
              "node": "poseidon2_node_layer"}
     for shape, n in sorted(p2_shapes.items()):
-        if shape[0] == "permute":
-            x = rand_field(rng, (12, shape[1]))
-        elif shape[0] == "leaf":
-            x = rand_field(rng, shape[1:])
-        else:
-            x = rand_field(rng, (4, shape[1]))
-        log("per prove: %s x %d" % (shape, n))
-        add(names[shape[0]], n, time_p2(shape, x))
-        del x
+        def p2():
+            if shape[0] == "permute":
+                x = rand_field(rng, (12, shape[1]))
+            elif shape[0] == "leaf":
+                x = rand_field(rng, shape[1:])
+            else:
+                x = rand_field(rng, (4, shape[1]))
+            return time_p2(shape, x)
+        log("per %s: %s x %d" % (label, shape, n))
+        add(names[shape[0]], n, shape, p2)
     for key, n in sorted(byte_shapes.items()):
         algo, shape = key[0], key[1:]
         name = "%s_%s" % (algo, "leaf_hashes" if shape[0] == "leaf"
                           else "node_layers")
-        log("per prove: %s %s x %d" % (name, shape[1:], n))
-        add(name, n, time_byte(rng, algo, shape))
+        log("per %s: %s %s x %d" % (label, name, shape[1:], n))
+        add(name, n, key, lambda: time_byte(rng, algo, shape))
     out = {k: dict(launches=v[0], sum_ms=round(v[1], 4),
                    bound_ms=round(v[2], 4), lost_ms=round(v[1] - v[2], 4))
            for k, v in totals.items()}
-    log("per prove, by kernel (launches, sum of launches x time, of "
-        "launches x bound, and of launches x (time - bound)): "
-        + json.dumps(out))
+    log("per %s, by kernel (launches, sum of launches x time, of "
+        "launches x bound, and of launches x (time - bound)): %s"
+        % (label, json.dumps(out)))
     return out, errs
 
 
@@ -1083,7 +1120,23 @@ def count_syncs(fn):
     return sites, out
 
 
-def stage_profiles(prover, ref, digest_of):
+def host_witness_calls():
+    """The calls of the host witness path (`materialize_witness_columns`)
+    so far; the first call starts counting them."""
+    from boojum_tpu_torch.prover import device_prover
+    if not hasattr(device_prover.materialize_witness_columns, "calls"):
+        materialize = device_prover.materialize_witness_columns
+
+        def counted(*args, **kwargs):
+            counted.calls += 1
+            return materialize(*args, **kwargs)
+
+        counted.calls = 0
+        device_prover.materialize_witness_columns = counted
+    return device_prover.materialize_witness_columns.calls
+
+
+def stage_profiles(prover, ref):
     """Where each transcript mode's prove spends its time, stage by stage,
     from one process: PROFILE_ROUNDS synced proves a mode, alternated (the
     order flipped every round), give each stage's host wall clock (the mean;
@@ -1101,7 +1154,7 @@ def stage_profiles(prover, ref, digest_of):
         for mode in (("device", "host") if i % 2 == 0 else ("host", "device")):
             proof = prover.prove(ref["transcript"], ref["hasher"],
                                  on_stage=lambda label: None, **modes[mode])
-            if digest_of(proof) != ref["proof_json_sha256"]:
+            if proof_digest(proof) != ref["proof_json_sha256"]:
                 raise AssertionError("the %s-transcript proof differs from "
                                      "the reference" % mode)
             for label, t in prover.last_stage_times.items():
@@ -1130,7 +1183,7 @@ def stage_profiles(prover, ref, digest_of):
                                  on_stage=on_stage, **kw)
         finally:
             cur[0].__exit__(None, None, None)
-        if digest_of(proof) != ref["proof_json_sha256"]:
+        if proof_digest(proof) != ref["proof_json_sha256"]:
             raise AssertionError("the profiled %s-transcript proof differs "
                                  "from the reference" % mode)
         for label, row in rows.items():
@@ -1151,7 +1204,7 @@ def stage_profiles(prover, ref, digest_of):
 
 
 def flagship():
-    """Synthesis, setup, one cold prove and five warm proves in each
+    """Synthesis, setup, one cold prove and WARM_ROUNDS warm proves in each
     transcript mode on the card (the default prove: device witness program
     and device transcript). Returns
     the launch counts of the path and one prove's launches by shape."""
@@ -1164,22 +1217,9 @@ def flagship():
     from boojum_tpu_torch.ntt import mxu_ntt
     from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                          create_device_setup)
-    from boojum_tpu_torch.prover import device_prover
-    from boojum_tpu_torch.prover.proof import proof_to_json
 
-    # count the host witness path's calls: the default prove must not take it
-    host_witness = [0]
-    materialize = device_prover.materialize_witness_columns
-
-    def counted_materialize(*args, **kwargs):
-        host_witness[0] += 1
-        return materialize(*args, **kwargs)
-
-    device_prover.materialize_witness_columns = counted_materialize
-
-    with open(os.path.join(ROOT, "boojum_tpu_torch", "data",
-                           "flagship_proof_digest.json")) as f:
-        ref = json.load(f)
+    host_witness = host_witness_calls()
+    ref = load_digest("flagship_proof_digest.json")
     data = bytes(np.random.default_rng(ref["seed"]).integers(
         0, 256, ref["input_len"], dtype=np.uint8))
     t0 = time.time()
@@ -1207,9 +1247,6 @@ def flagship():
         torch.cuda.synchronize()
         return proof, time.time() - t
 
-    def digest_of(proof):
-        return hashlib.sha256(proof_to_json(proof).encode()).hexdigest()
-
     torch.cuda.reset_peak_memory_stats()
     proof, t_cold = prove()
     # warm proves of the two transcript modes, alternated in one process
@@ -1232,7 +1269,7 @@ def flagship():
     def warm_host():
         host_proof, t = prove(device_transcript=False)
         warm["host"].append(t)
-        if digest_of(host_proof) != ref["proof_json_sha256"]:
+        if proof_digest(host_proof) != ref["proof_json_sha256"]:
             raise AssertionError("the host-transcript proof differs from "
                                  "the reference")
 
@@ -1266,23 +1303,24 @@ def flagship():
                              "once and poseidon_sponge more than once, got %d "
                              "and %d" % (per_prove["sha256_witness"],
                                          per_prove["poseidon_sponge"]))
-    if host_witness[0]:
+    host_witness = host_witness_calls() - host_witness
+    if host_witness:
         raise AssertionError("the default prove called "
                              "materialize_witness_columns %d times"
-                             % host_witness[0])
+                             % host_witness)
     log("flagship default prove: device witness program (sha256_witness %d "
         "launch a prove, materialize_witness_columns never called) and "
         "device transcript (poseidon_sponge %d launches a prove: %s)"
         % (per_prove["sha256_witness"], per_prove["poseidon_sponge"],
            json.dumps({"%s" % (k,): v for k, v in sorted(k6_shapes.items())})))
 
-    digest = digest_of(proof)
+    digest = proof_digest(proof)
     log("flagship proof_to_json: sha256 %s (reference %s)"
         % (digest, ref["proof_json_sha256"]))
     if digest != ref["proof_json_sha256"]:
         raise AssertionError("flagship proof differs from the reference")
 
-    stage_profiles(prover, ref, digest_of)
+    stage_profiles(prover, ref)
     for mode, kw in (("device", {}), ("host", dict(device_transcript=False))):
         sites, (_, t) = count_syncs(lambda: prove(**kw))
         log("flagship synchronizing calls, one warm prove with the %s "
@@ -1294,7 +1332,6 @@ def flagship():
                 "a warm prove with the %s transcript made %d synchronizing "
                 "calls, more than %d" % (mode, sum(sites.values()),
                                          MAX_SYNCS[mode]))
-    device_prover.materialize_witness_columns = materialize
     ctx = dict(cs=cs, sb=sb, ref=ref, proof=proof, vk=art.vk)
     return counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes, ctx
 
@@ -1313,11 +1350,8 @@ def byte_flagship(ctx, kind, warm):
     from boojum_tpu_torch.hash import device_bytes_hash as dbh
     from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                          create_device_setup)
-    from boojum_tpu_torch.prover.proof import proof_to_json
 
-    with open(os.path.join(ROOT, "boojum_tpu_torch", "data",
-                           "flagship_%s_proof_digest.json" % kind)) as f:
-        ref = json.load(f)
+    ref = load_digest("flagship_%s_proof_digest.json" % kind)
     base = ctx["ref"]
     if [ref[k] for k in ("seed", "input_len", "max_trace_len")] != \
             [base[k] for k in ("seed", "input_len", "max_trace_len")] or \
@@ -1339,7 +1373,7 @@ def byte_flagship(ctx, kind, warm):
         return proof, time.time() - t
 
     def check(proof, what):
-        digest = hashlib.sha256(proof_to_json(proof).encode()).hexdigest()
+        digest = proof_digest(proof)
         if digest != ref["proof_json_sha256"]:
             raise AssertionError("the %s %s proof differs from the reference "
                                  "(sha256 %s)" % (kind, what, digest))
@@ -1406,9 +1440,299 @@ def byte_flagship(ctx, kind, warm):
     return counts, shapes, proof, art.vk
 
 
+def load_digest(name):
+    with open(os.path.join(ROOT, "boojum_tpu_torch", "data", name)) as f:
+        return json.load(f)
+
+
+def proof_digest(proof):
+    from boojum_tpu_torch.prover.proof import proof_to_json
+    return hashlib.sha256(proof_to_json(proof).encode()).hexdigest()
+
+
+def launch_shapes(fn):
+    """Runs ``fn()`` (a setup or a prove) and returns its result and the
+    launches it made of K1, K2 and K6, by shape."""
+    from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    from boojum_tpu_torch.hash import poseidon
+    from boojum_tpu_torch.ntt import mxu_ntt
+    mods = (mxu_ntt, pp, poseidon)
+    before = [m.SHAPES.copy() for m in mods]
+    out = fn()
+    return out, [m.SHAPES - b for m, b in zip(mods, before)]
+
+
+def timed_proves(name, prover, ref, sha, count):
+    """``count`` proves in turn by ``prover`` with the default device
+    transcript, each timed (to the closing synchronize) and held to the
+    digest ``sha``. Returns the last proof, the times and the last prove's
+    launches by shape."""
+    import torch
+
+    def prove():
+        t = time.time()
+        proof = prover.prove(ref["transcript"], ref["hasher"])
+        torch.cuda.synchronize()
+        t = time.time() - t
+        if proof_digest(proof) != sha:
+            raise AssertionError("a %s proof differs from the reference "
+                                 "(sha256 %s)" % (name, proof_digest(proof)))
+        return proof, t
+
+    times, shapes = [], None
+    for _ in range(count):
+        (proof, t), shapes = launch_shapes(prove)
+        times.append(t)
+    log("%s: %d proves in turn, %s s; each proof_to_json sha256 %s (the "
+        "reference's)" % (name, count, ", ".join("%.4f" % t for t in times),
+                          sha))
+    return proof, times, shapes
+
+
+def op_counted_prove(prove):
+    """Runs ``prove(on_stage)`` with every torch op it dispatches counted,
+    stage by stage through the prove's ``on_stage`` hook (a
+    `TorchDispatchMode`: on the card each op is about one kernel launch;
+    the hand kernels, launched through ctypes, are not in it). Far cheaper
+    than `torch.profiler` on a prove of a million launches. Returns the
+    proof and, by stage, the ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    rows, last = {}, [0]
+    mode = Count()
+
+    def on_stage(label):
+        rows[label] = mode.ops - last[0]
+        last[0] = mode.ops
+
+    with mode:
+        proof = prove(on_stage)
+    return proof, rows
+
+
+def log_stage_ops(name, rows, walls):
+    """Prints an op-counted prove's torch ops and wall clock by stage
+    (``walls``: the prover's `last_stage_times`, a synced prove); returns
+    its op count."""
+    rows = {label: dict(torch_ops=n, wall_s=round(walls[label], 4))
+            for label, n in rows.items()}
+    ops = sum(r["torch_ops"] for r in rows.values())
+    log("%s prove, by stage (torch ops dispatched, synced wall): %s; %d "
+        "torch ops, %.4f s" % (name, json.dumps(rows), ops,
+                               sum(r["wall_s"] for r in rows.values())))
+    return ops
+
+
+def keccak_circuit():
+    """BASELINE config 3: the 1 kB Keccak-256 circuit (domain 2^16, the
+    flagship's geometry), Poseidon transcript, Poseidon2 trees, LDE 8, cap
+    16. Synthesis, base and device setup, one cold and KECCAK_WARM_PROVES
+    warm proves with the default device transcript, each proof's digest
+    against `keccak256_1kB_proof_digest.json`, the last warm one with its
+    synchronizing calls counted (at most MAX_SYNCS["device"]); then one
+    synced prove with its torch ops counted by stage. Every prove must take the device witness program
+    (`materialize_witness_columns` never called). Returns the counts of the
+    path, the launches by shape of its setup and of one warm prove, and the
+    proof and VK."""
+    import numpy as np
+    import torch
+    from boojum_tpu_torch.cs.setup import create_base_setup
+    from boojum_tpu_torch.gadgets.keccak256 import build_keccak256_circuit
+    from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
+                                         create_device_setup)
+
+    ref = load_digest("keccak256_1kB_proof_digest.json")
+    sha = ref["proof_json_sha256"]
+    data = bytes(np.random.default_rng(ref["seed"]).integers(
+        0, 256, ref["input_len"], dtype=np.uint8))
+    t0 = time.time()
+    cs, _ = build_keccak256_circuit(data, ref["max_trace_len"])
+    cs.pad_and_shrink()
+    t_synth = time.time() - t0
+    if cs.final_trace_len != ref["domain"]:
+        raise AssertionError("the keccak256 circuit has %d rows, the "
+                             "reference %d" % (cs.final_trace_len,
+                                               ref["domain"]))
+    host_witness = host_witness_calls()
+    reset_counts()  # counts of this path only
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sb = create_base_setup(cs)
+    t_base = time.time() - t0
+    cfg = ProofConfig(**ref["config"])
+    t0 = time.time()
+    art, setup_shapes = launch_shapes(lambda: create_device_setup(
+        cs, sb, cfg, ref["hasher"], device="cuda"))
+    prover = DeviceProver(cs, art, cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    log("keccak256 circuit (%d bytes): synthesis %.2f s, domain %d, "
+        "create_base_setup %.2f s, create_device_setup %.2f s" % (
+            ref["input_len"], t_synth, cs.final_trace_len, t_base, t_setup))
+    proof, _, shapes = timed_proves("keccak256 circuit (cold, then warm)",
+                                    prover, ref, sha, KECCAK_WARM_PROVES)
+    t = time.time()
+    sites, synced = count_syncs(
+        lambda: prover.prove(ref["transcript"], ref["hasher"]))
+    t = time.time() - t
+    if proof_digest(synced) != sha:
+        raise AssertionError("the sync-counted keccak256 proof differs")
+    log("keccak256 circuit synchronizing calls, the last warm prove: %d "
+        "(%.3f s); by source line: %s" % (sum(sites.values()), t,
+                                          json.dumps(dict(sites.most_common()))))
+    if sum(sites.values()) > MAX_SYNCS["device"]:
+        raise AssertionError("a warm keccak256 prove made %d synchronizing "
+                             "calls, more than %d" % (sum(sites.values()),
+                                                      MAX_SYNCS["device"]))
+    counted, rows = op_counted_prove(lambda on_stage: prover.prove(
+        ref["transcript"], ref["hasher"], on_stage=on_stage))
+    if proof_digest(counted) != sha:
+        raise AssertionError("the op-counted keccak256 proof differs")
+    log_stage_ops("keccak256 circuit", rows, prover.last_stage_times)
+    counts = read_counts()
+    log("keccak256 circuit: peak device memory %.2f GB; launches (setup + "
+        "%d proves): %s" % (torch.cuda.max_memory_allocated() / 1e9,
+                            2 + KECCAK_WARM_PROVES, json.dumps(counts)))
+    for name in ("ntt_stage", "poseidon2_leaf_hashes", "poseidon2_node_layer",
+                 "poseidon_sponge"):
+        if counts[name] <= 0:
+            raise AssertionError("%s never launched on the keccak256 path"
+                                 % name)
+    if counts["plain_on_cuda"]:
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    host_witness = host_witness_calls() - host_witness
+    if host_witness:
+        raise AssertionError("the keccak256 prove called "
+                             "materialize_witness_columns %d times"
+                             % host_witness)
+    log("keccak256 circuit: device witness program (materialize_witness_"
+        "columns never called)")
+    return counts, dict(setup=setup_shapes, prove=shapes), proof, art.vk
+
+
+def recursion_outer():
+    """BASELINE config 2: the inner proof of the 2^5-row circuit (LDE 8, cap
+    8, security 100) made on the card and held to its digest, the outer
+    circuit that verifies it (132 copy columns, degree 8, flattened Poseidon
+    and Poseidon2 gates) synthesized and checked, its setup, then a cold
+    prove with its torch ops counted by stage, a warm prove timed and a warm
+    prove counted, each held to the outer digest of
+    `recursion_outer_proof_digest.json`; and the outer circuit over the
+    inner proof with one value at z bumped must be unsatisfied. Both circuits take the host witness path,
+    as in the reference. Returns the counts of the path, the launches by
+    shape of each setup, of the inner prove and of one outer prove, and the
+    inner and outer proofs and VKs."""
+    import copy
+    import numpy as np
+    import torch
+    from boojum_tpu_torch.gadgets.recursion.circuits import (
+        build_inner_circuit, build_outer_circuit)
+    from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
+                                         prepare_setup_and_vk)
+
+    ref = load_digest("recursion_outer_proof_digest.json")
+    iref, oref = ref["inner"], ref["outer"]
+    icfg, ocfg = ProofConfig(**iref["config"]), ProofConfig(**oref["config"])
+    host_witness = host_witness_calls()
+    reset_counts()  # counts of this path only
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    inner = build_inner_circuit(np.random.default_rng(iref["seed"]))
+    iart, inner_setup = launch_shapes(lambda: prepare_setup_and_vk(
+        inner, icfg, iref["hasher"], device="cuda"))
+    iprover = DeviceProver(inner, iart, icfg, device="cuda")
+    torch.cuda.synchronize()
+    t_isetup = time.time() - t0
+    inner_proof, _, inner_shapes = timed_proves(
+        "recursion inner (domain %d, cold)" % inner.final_trace_len, iprover,
+        iref, iref["proof_json_sha256"], 1)
+
+    t0 = time.time()
+    outer = build_outer_circuit(iart.vk, inner_proof, icfg, iref["transcript"],
+                                iref["hasher"], oref["max_trace_len"])
+    t_synth = time.time() - t0
+    t0 = time.time()
+    if not outer.check_if_satisfied():
+        raise AssertionError("the outer circuit is not satisfied")
+    t_check = time.time() - t0
+    g = outer.geometry
+    log("recursion outer: inner synthesis and setup %.2f s; outer synthesis "
+        "%.2f s, check_if_satisfied %.2f s; outer domain %d, %d copy "
+        "columns, degree %d" % (
+            t_isetup, t_synth, t_check, outer.final_trace_len,
+            g.num_columns_under_copy_permutation,
+            g.max_allowed_constraint_degree))
+    if (outer.final_trace_len, g.num_columns_under_copy_permutation) != \
+            (oref["domain"], 132):
+        raise AssertionError("the outer circuit is not the reference's shape")
+    t0 = time.time()
+    oart, outer_setup = launch_shapes(lambda: prepare_setup_and_vk(
+        outer, ocfg, oref["hasher"], device="cuda"))
+    oprover = DeviceProver(outer, oart, ocfg, device="cuda")
+    torch.cuda.synchronize()
+    log("recursion outer: setup (base + device) %.2f s, quotient degree %d"
+        % (time.time() - t0, oart.setup_base.quotient_degree))
+
+    sha = oref["proof_json_sha256"]
+
+    def counted(what):
+        (proof, rows), shapes = launch_shapes(lambda: op_counted_prove(
+            lambda on_stage: oprover.prove(oref["transcript"], oref["hasher"],
+                                           on_stage=on_stage)))
+        if proof_digest(proof) != sha:
+            raise AssertionError("the %s outer proof differs from the "
+                                 "reference (sha256 %s)"
+                                 % (what, proof_digest(proof)))
+        return log_stage_ops("recursion outer %s" % what, rows,
+                             oprover.last_stage_times), shapes
+
+    cold_ops, _ = counted("cold")
+    outer_proof, times, _ = timed_proves("recursion outer (warm)", oprover,
+                                         oref, sha, 1)
+    warm_ops, shapes = counted("warm")
+    log("recursion outer: torch ops a prove, cold %d, warm %d; warm prove "
+        "%.4f s; peak device memory %.2f GB" % (
+            cold_ops, warm_ops, times[0],
+            torch.cuda.max_memory_allocated() / 1e9))
+
+    bad = copy.deepcopy(inner_proof)
+    v = list(bad.values_at_z[2])
+    v[0] = (v[0] + 1) % ((1 << 64) - (1 << 32) + 1)
+    bad.values_at_z[2] = tuple(v)
+    bad_outer = build_outer_circuit(iart.vk, bad, icfg, iref["transcript"],
+                                    iref["hasher"], oref["max_trace_len"])
+    if bad_outer.check_if_satisfied(verbose=False):
+        raise AssertionError("the outer circuit over a corrupted inner proof "
+                             "is satisfied")
+    log("recursion outer: over the inner proof with values_at_z[2] bumped, "
+        "the outer circuit is unsatisfied")
+
+    counts = read_counts()
+    log("recursion path launches (setups + %d proves): %s; host witness "
+        "path calls %d" % (4, json.dumps(counts),
+                           host_witness_calls() - host_witness))
+    for name in ("poseidon2_leaf_hashes", "poseidon2_node_layer",
+                 "poseidon_sponge"):
+        if counts[name] <= 0:
+            raise AssertionError("%s never launched on the recursion path"
+                                 % name)
+    if counts["plain_on_cuda"]:
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    return counts, {"inner setup": inner_setup, "inner prove": inner_shapes,
+                    "outer setup": outer_setup, "outer prove": shapes}, dict(
+        inner=(iart.vk, inner_proof), outer=(oart.vk, outer_proof))
+
+
 def verify_path(proofs):
-    """The port's `verify` (host code on Python ints) on each flagship
-    proof, timed, and on the Blake2s proof with one witness leaf element
+    """The port's `verify` (host code on Python ints) on each proof,
+    timed, and on the Blake2s proof with one witness leaf element
     flipped, which it must reject. It must launch no kernel."""
     import copy
     from boojum_tpu_torch.verifier import verifier
@@ -1505,14 +1829,31 @@ def main():
     kec_counts, kec_shapes, kec_proof, kec_vk = byte_flagship(
         ctx, "keccak256", 0)
     phase("keccak256 flagship")
+    kcc_counts, kcc_shapes, kcc_proof, kcc_vk = keccak_circuit()
+    phase("keccak256 circuit")
+    rec_counts, rec_shapes, rec_proofs = recursion_outer()
+    phase("recursion outer")
     verify_secs = verify_path({
         "poseidon": (ctx["vk"], ctx["proof"], ctx["ref"]["transcript"],
                      ctx["ref"]["hasher"]),
         "blake2s": (b2s_vk, b2s_proof, "blake2s", "blake2s"),
-        "keccak256": (kec_vk, kec_proof, "keccak256", "keccak256")})
+        "keccak256": (kec_vk, kec_proof, "keccak256", "keccak256"),
+        "keccak256 circuit": (kcc_vk, kcc_proof, "poseidon", "poseidon2"),
+        "recursion inner": (*rec_proofs["inner"], "poseidon", "poseidon2"),
+        "recursion outer": (*rec_proofs["outer"], "poseidon", "poseidon2")})
     phase("verify")
-    costs, prove_errs = per_prove_costs(rng, k1_shapes, p2_shapes, k5_blocks,
-                                        k6_shapes, b2s_shapes + kec_shapes)
+    memo = {}
+    costs, prove_errs = per_prove_costs(
+        rng, "flagship prove", k1_shapes, p2_shapes, k5_blocks, k6_shapes,
+        b2s_shapes + kec_shapes, memo)
+    path_costs = {"flagship prove": costs}
+    new_paths = [("keccak256 circuit " + k, v) for k, v in kcc_shapes.items()]
+    new_paths += [("recursion " + k, v) for k, v in rec_shapes.items()]
+    for label, shapes in new_paths:
+        path_costs[label], errs = per_prove_costs(
+            rng, label, *shapes[:2], {}, shapes[2], {}, memo)
+        for name, err in errs.items():
+            prove_errs[name] = max(prove_errs[name], err)
     # K6's row: the prove's largest absorb (the values at z)
     k6 = time_k6(rng, max(s for s in k6_shapes if s[0] == "absorb"),
                  plain=True)
@@ -1522,6 +1863,9 @@ def main():
     phase("ntt and permute paths")
 
     def row(name, source, replaces, launches, err, t):
+        # launches: the kernel's main paths, the flagship's or its own, and
+        # the keccak256 circuit's and the recursion configuration's
+        launches += kcc_counts[name] + rec_counts[name]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches, max_abs_err=err, ms=t["ms"],
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -1564,7 +1908,7 @@ def main():
                                path_counts[name],
                                max(err, prove_errs[name]), t))
     log("verify seconds per proof: " + json.dumps(verify_secs))
-    log("summary: " + json.dumps(dict(per_prove=costs, sass={
+    log("summary: " + json.dumps(dict(per_prove=path_costs, sass={
         k: {f: v[f] for f in ("total", "integer", "imad", "integer_per_pass",
                               "integer_per_element") if f in v}
         for k, v in sass.items()}, byte_sass={

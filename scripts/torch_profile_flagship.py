@@ -1,16 +1,25 @@
-"""Where the flagship prove's time goes on the GPU, for the PyTorch port.
+"""Where a prove's time goes on the GPU, for the PyTorch port.
 
-Synthesizes the flagship 8 kB SHA-256 circuit (seed, input length and proof
-config from `boojum_tpu_torch/data/flagship_proof_digest.json`), runs setup and one warm-up prove on the card, then one prove under
-`torch.profiler` and prints one JSON line: the prove's wall time, the summed
-device time of its kernels, the device's idle share (1 - busy / wall), the
-launch count, and the kernels with the most device time. The profiler's own
-overhead inflates the wall time of the profiled prove, so the idle share is
-also given against the unprofiled warm prove's wall time.
+Builds one configuration's circuit (seed, input and proof config from its
+digest file in `boojum_tpu_torch/data/`), runs setup and one warm-up prove
+on the card, then one prove under `torch.profiler` (CUDA activity) and
+prints one JSON line: the prove's wall time, the summed device time of its
+kernels, the device's idle share (1 - busy / wall), the launch count, and
+the kernels with the most device time. The profiler's own overhead
+inflates the wall time of the profiled prove, so the idle share is also
+given against the unprofiled warm prove's wall time.
 
-    python3 scripts/torch_profile_flagship.py
+    python3 scripts/torch_profile_flagship.py [--config NAME]
+
+``--config flagship`` (the default): the 8 kB SHA-256 circuit
+(`flagship_proof_digest.json`). ``keccak256``: the 1 kB Keccak-256 circuit
+(`keccak256_1kB_proof_digest.json`). ``recursion_outer``: the outer proof
+of the recursion configuration (`recursion_outer_proof_digest.json`; its
+inner proof is made first). Each prove's digest is checked.
 """
 
+import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -23,43 +32,86 @@ sys.path.insert(0, ROOT)
 TOP = 12  # kernels listed by device time
 
 
-def main():
+def build(config):
+    """The prover of ``config`` on the card, its proof kinds and the
+    reference digest of its proof."""
     import numpy as np
+    from boojum_tpu_torch.cs.setup import create_base_setup
+    from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
+                                         create_device_setup,
+                                         prepare_setup_and_vk)
+
+    def load(name):
+        with open(os.path.join(ROOT, "boojum_tpu_torch", "data", name)) as f:
+            return json.load(f)
+
+    if config == "recursion_outer":
+        from boojum_tpu_torch.gadgets.recursion.circuits import (
+            build_inner_circuit, build_outer_circuit)
+        ref = load("recursion_outer_proof_digest.json")
+        iref, ref = ref["inner"], ref["outer"]
+        icfg = ProofConfig(**iref["config"])
+        inner = build_inner_circuit(np.random.default_rng(iref["seed"]))
+        iart = prepare_setup_and_vk(inner, icfg, iref["hasher"], device="cuda")
+        inner_proof = DeviceProver(inner, iart, icfg, device="cuda").prove(
+            iref["transcript"], iref["hasher"])
+        cs = build_outer_circuit(iart.vk, inner_proof, icfg,
+                                 iref["transcript"], iref["hasher"],
+                                 ref["max_trace_len"])
+    else:
+        if config == "keccak256":
+            from boojum_tpu_torch.gadgets.keccak256 import \
+                build_keccak256_circuit as build_circuit
+            ref = load("keccak256_1kB_proof_digest.json")
+        else:
+            from boojum_tpu_torch.gadgets.sha256 import \
+                build_sha256_circuit as build_circuit
+            ref = load("flagship_proof_digest.json")
+        data = bytes(np.random.default_rng(ref["seed"]).integers(
+            0, 256, ref["input_len"], dtype=np.uint8))
+        cs, _ = build_circuit(data, ref["max_trace_len"])
+        cs.pad_and_shrink()
+    cfg = ProofConfig(**ref["config"])
+    art = create_device_setup(cs, create_base_setup(cs), cfg, ref["hasher"],
+                              device="cuda")
+    prover = DeviceProver(cs, art, cfg, device="cuda")
+    return prover, (ref["transcript"], ref["hasher"]), ref["proof_json_sha256"]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default="flagship",
+                    choices=("flagship", "keccak256", "recursion_outer"))
+    args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("torch_profile_flagship: CUDA is not available", file=sys.stderr)
         return 1
-    from boojum_tpu_torch.cs.setup import create_base_setup
-    from boojum_tpu_torch.gadgets.sha256 import build_sha256_circuit
-    from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
-                                         create_device_setup)
+    from boojum_tpu_torch.prover.proof import proof_to_json
 
-    with open(os.path.join(ROOT, "boojum_tpu_torch", "data",
-                           "flagship_proof_digest.json")) as f:
-        ref = json.load(f)
-    data = bytes(np.random.default_rng(ref["seed"]).integers(
-        0, 256, ref["input_len"], dtype=np.uint8))
-    cs, _ = build_sha256_circuit(data, max_trace_len=ref["max_trace_len"])
-    cs.pad_and_shrink()
-    cfg = ProofConfig(**ref["config"])
-    art = create_device_setup(cs, create_base_setup(cs), cfg, ref["hasher"],
-                              device="cuda")
-    prover = DeviceProver(cs, art, cfg, device="cuda")
-    kinds = (ref["transcript"], ref["hasher"])
-    prover.prove(*kinds)
+    prover, kinds, sha = build(args.config)
+
+    def check(proof):
+        if hashlib.sha256(proof_to_json(proof).encode()).hexdigest() != sha:
+            raise AssertionError("the %s proof differs from the reference"
+                                 % args.config)
+
+    check(prover.prove(*kinds))
     torch.cuda.synchronize()
     t0 = time.time()
-    prover.prove(*kinds)
+    check(prover.prove(*kinds))
     torch.cuda.synchronize()
     warm = time.time() - t0
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        prover.prove(*kinds)
+        proof = prover.prove(*kinds)
         torch.cuda.synchronize()
         wall = time.time() - t0
+    check(proof)
+    t0 = time.time()
 
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -86,6 +138,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(json.dumps({
+        "config": args.config,
         "card": card,
         "warm_prove_s": warm,
         "profiled_prove_s": wall,
@@ -94,6 +147,7 @@ def main():
         "idle_share_of_span": 1 - busy_us / max(last - first, 1e-9),
         "idle_share_of_warm_prove": 1 - busy_us / 1e6 / warm,
         "kernel_launches": len(events),
+        "profile_processing_s": time.time() - t0,
         "top_kernels": [{"name": n[:90], "device_ms": t / 1e3, "count": c}
                         for n, (t, c) in top],
     }))

@@ -52,3 +52,46 @@ def test_entry_points_default_to_the_gpu():
         DeviceProver(None, None, None)
     with pytest.raises(RuntimeError, match="CUDA"):
         create_device_setup(None, None, None)
+
+
+# the gadget and recursion modules of the Keccak-256 and recursion slice
+SLICE_MODULES = (
+    "boojum_tpu_torch.gadgets.keccak256",
+    "boojum_tpu_torch.gadgets.num",
+    "boojum_tpu_torch.gadgets.poseidon2_circuit",
+    "boojum_tpu_torch.gadgets.recursion",
+    "boojum_tpu_torch.gadgets.recursion.primitives",
+    "boojum_tpu_torch.gadgets.recursion.verifier",
+    "boojum_tpu_torch.gadgets.recursion.circuits",
+    "boojum_tpu_torch.prover.convenience",
+)
+
+
+def test_slice_modules_import_without_jax():
+    """Importing every module of the slice in a fresh interpreter loads
+    neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+    code = ("import sys\n" + "".join("import %s\n" % m for m in SLICE_MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+            "assert not bad, bad\n" % (FORBIDDEN,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_modules_name_their_source(module):
+    """Each module's first line names the files it was copied or ported
+    from, and they are in the repo."""
+    path = os.path.join(ROOT, *module.split("."))
+    path = path + ".py" if os.path.exists(path + ".py") else \
+        os.path.join(path, "__init__.py")
+    with open(path) as f:
+        first = f.readline()
+    assert first.startswith(("# Copied from ", "# Port of ")), first
+    sources = [w.rstrip(".,:;") for w in first.split()
+               if w.rstrip(".,:;").endswith(".py") or ".py:" in w]
+    assert sources, first
+    for src in sources:
+        assert os.path.exists(os.path.join(ROOT, src.split(":")[0])), src
