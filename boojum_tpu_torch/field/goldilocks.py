@@ -6,12 +6,11 @@ The field is F_p with p = 2^64 - 2^32 + 1. A tensor of field elements is an
 no working ``uint64`` arithmetic on the CPU, and an ``int64`` tensor runs
 unchanged on the CPU and on the GPU. Conventions that follow from that:
 
-- additions, subtractions and left shifts wrap modulo 2^64, which is what
-  the u64 algorithms below need;
+- additions, subtractions, left shifts and products wrap modulo 2^64,
+  which is what the u64 algorithms below need: a product of two 32-bit
+  halves is its exact u64 bit pattern (`_mul_wide`);
 - ``>>`` on int64 is arithmetic, so logical shifts mask after shifting;
-- unsigned comparisons flip the sign bit of both sides first;
-- products are formed from 32x16-bit pieces, so that no multiply overflows
-  int64 (`_mul32`).
+- unsigned comparisons flip the sign bit of both sides first.
 
 Every public op returns canonical values (< p) for canonical inputs. Python
 ints >= 2^63 (p - 1 and most constants) go through `i64` before they meet a
@@ -20,7 +19,7 @@ twins, copied from the reference.
 
 A scalar operand of `mul`, `add`, `sub` and `full` may be a Python int (split
 on the host), a tensor, or a `Prepared` scalar: a 0-dim device value that
-`prepare` split once into the 16-bit limbs `mul` needs, so a multiply by a
+`prepare` split once into the 32-bit halves `mul` needs, so a multiply by a
 device challenge costs the same ops as a multiply by a host int.
 """
 
@@ -68,8 +67,8 @@ def to_u64(t: torch.Tensor) -> np.ndarray:
 
 class Prepared:
     """A canonical field scalar on the device, split once: ``value`` (0-dim)
-    and ``limbs``, the four 16-bit limbs (0-dim) of its low and high 32-bit
-    halves, lowest first. `mul` takes the limbs as they are."""
+    and ``limbs``, its low and high 32-bit halves (0-dim). `mul` takes the
+    halves as they are."""
 
     __slots__ = ("value", "limbs")
 
@@ -82,9 +81,9 @@ def prepare(values: torch.Tensor) -> list:
     """Canonical values (any shape, taken flat) -> one `Prepared` each, in
     a fixed handful of ops for the whole tensor."""
     v = values.reshape(-1)
-    limbs = torch.stack([v, v >> 16, v >> 32, v >> 48], dim=1) & 0xFFFF
+    limbs = torch.stack([v, v >> 32], dim=1) & _M32
     vals, flat = v.unbind(0), limbs.reshape(-1).unbind(0)
-    return [Prepared(vals[i], flat[4 * i:4 * i + 4]) for i in range(len(vals))]
+    return [Prepared(vals[i], flat[2 * i:2 * i + 2]) for i in range(len(vals))]
 
 
 def full(shape, value, device="cpu") -> torch.Tensor:
@@ -121,42 +120,31 @@ def _ult(a, b):
     return (a ^ _SIGN) < (b ^ _SIGN)
 
 
-def _mul32(a, b_lo, b_hi):
-    """u64 bit pattern of a * b for 0 <= a < 2^32 and b = b_lo + b_hi·2^16
-    (16-bit limbs). Each multiply is 32x16 bits (< 2^48); only the shift and
-    the add wrap."""
-    return a * b_lo + ((a * b_hi) << 16)
-
-
 def _limbs(b):
-    """The 16-bit limbs of ``b``'s low and high 32-bit halves, lowest first:
-    Python ints for an int, as prepared for a `Prepared` scalar, else split
-    once on the device."""
+    """The low and high 32-bit halves of ``b``: Python ints for an int, as
+    prepared for a `Prepared` scalar, else split on the device."""
     if isinstance(b, Prepared):
         return b.limbs
     if not isinstance(b, torch.Tensor):
-        return (b & 0xFFFF, (b >> 16) & 0xFFFF, (b >> 32) & 0xFFFF, b >> 48)
-    b0 = b & _M32
-    b1 = _lsr32(b)
-    return (b0 & 0xFFFF, b0 >> 16, b1 & 0xFFFF, b1 >> 16)
+        return b & _M32, b >> 32
+    return b & _M32, _lsr32(b)
 
 
 def _mul_wide(a, b):
     """64x64 -> (hi, lo) u64 patterns (utils/npgl._mul_wide). ``a`` is a
     tensor; ``b`` a tensor, a `Prepared` scalar or a non-negative Python
-    int."""
+    int. The four 32x32-bit products wrap to their exact u64 patterns; the
+    middle column sums three 32-bit pieces (< 2^34), so nothing carries
+    out of it."""
     a0 = a & _M32
     a1 = _lsr32(a)
-    b0l, b0h, b1l, b1h = _limbs(b)
-    ll = _mul32(a0, b0l, b0h)
-    lh = _mul32(a0, b1l, b1h)
-    hl = _mul32(a1, b0l, b0h)
-    hh = _mul32(a1, b1l, b1h)
-    mid = lh + _lsr32(ll)
-    mid2 = mid + hl
-    carry = _ult(mid2, hl).to(torch.int64)
-    lo = (ll & _M32) | (mid2 << 32)
-    hi = hh + _lsr32(mid2) + (carry << 32)
+    b0, b1 = _limbs(b)
+    ll = a0 * b0
+    lh = a0 * b1
+    hl = a1 * b0
+    mid = _lsr32(ll) + (lh & _M32) + (hl & _M32)
+    lo = (ll & _M32) | (mid << 32)
+    hi = a1 * b1 + _lsr32(lh) + _lsr32(hl) + (mid >> 32)
     return hi, lo
 
 

@@ -2,3 +2,4 @@
 """Gadget library (reference src/gadgets/)."""
 
 from . import sha256, tables, uints  # noqa: F401
+from .lookup_heavy import build_lookup_heavy_circuit  # noqa: F401

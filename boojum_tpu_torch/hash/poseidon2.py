@@ -18,6 +18,8 @@ Python-int twin used by the transcript.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..field import goldilocks as gl
@@ -32,6 +34,7 @@ _RC = C.ALL_ROUND_CONSTANTS  # 30 rounds x 12
 _R_F_HALF = C.HALF_NUM_FULL_ROUNDS
 _R_P = C.NUM_PARTIAL_ROUNDS
 _DIAG_SHIFTS = C.INNER_DIAGONAL_SHIFTS
+_MAX_I63 = (1 << 63) - 1
 
 
 # ----------------------------------------------------------------------------
@@ -62,12 +65,23 @@ def _external_mds_stacked(st):
     return gl.add(blocks, total[None]).reshape(12, -1)
 
 
+@functools.lru_cache(maxsize=None)
+def _diag_shift_tables(device):
+    """The internal diagonal's shifts s[i] as (12, 1) tensors on ``device``:
+    s, and 63 - s for the high part of x·2^s."""
+    s = torch.tensor(_DIAG_SHIFTS, dtype=torch.int64, device=device)[:, None]
+    return s, 63 - s
+
+
 def _internal_matrix_stacked(st):
-    """st[i] = st[i]·2^shift[i] + Σ st."""
+    """st[i] = st[i]·2^shift[i] + Σ st. x·2^s = hi·2^64 + lo with lo = x << s
+    (mod 2^64) and hi = x >> (64 - s) (logical, < 2^14), reduced as a
+    product's halves are: the same canonical value as gl.mul(x, 2^s) in
+    about half its ops."""
     total = gl.sum_mod(st, 0)
-    diag = torch.tensor([1 << s for s in _DIAG_SHIFTS], dtype=torch.int64,
-                        device=st.device)
-    return gl.add(gl.mul(st, diag[:, None]), total[None])
+    s, rest = _diag_shift_tables(st.device)
+    hi = ((st >> 1) & _MAX_I63) >> rest
+    return gl.add(gl._reduce128(hi, st << s), total[None])
 
 
 def _rc_column(r: int, device):

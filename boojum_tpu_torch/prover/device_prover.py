@@ -22,8 +22,17 @@ condition (an algebraic transcript and the poseidon2 tree hasher): every
 challenge stays on the device until one handoff to the host transcript
 before the queries. The Blake2s and Keccak-256 transcripts run on the host.
 
-Not ported, and raising NotImplementedError: general-purpose lookup mode,
-and the poseidon (not poseidon2) tree hasher.
+Every lookup mode of the reference runs: the specialized modes (A_i =
+1/agg_i on every row) and the general-purpose ones, whose lookups sit on the
+rows of the marker gate (A_i = sel/agg_i, sel the marker's selector-path
+product over the constant columns; the reference's
+`device_prover.py:776-800` and host `prover.py:294-321`). Not ported, and
+raising NotImplementedError: the poseidon (not poseidon2) tree hasher.
+
+Setup and prove run under `torch.inference_mode()`: nothing is
+differentiated, and each of a prove's hundreds of thousands of ops skips
+autograd's bookkeeping, a host cost per op. The tensors they make may be
+read anywhere but changed in place only inside that mode.
 """
 
 from __future__ import annotations
@@ -68,20 +77,28 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_supported(cs, hasher: str):
+def _check_supported(hasher: str):
     if hasher not in TREE_HASHERS:
         raise NotImplementedError("tree hasher %r is not ported" % hasher)
-    lp = cs.lookup_parameters
-    if lp.lookup_is_allowed and not lp.is_specialized:
-        raise NotImplementedError("general-purpose lookup mode is not ported")
 
 
+def _selector_product(path, const_cols, size, dev):
+    """The selector of a gate at ``path`` in the selector tree: the product
+    over its constant columns of c (bit 1) or 1 - c (bit 0)."""
+    prod = gl.full((size,), 1, dev)
+    for k, bit in enumerate(path):
+        col = const_cols[k]
+        prod = gl.mul(prod, col if bit else gl.sub(gl.full((), 1, dev), col))
+    return prod
+
+
+@torch.inference_mode()
 def create_device_setup(cs, setup_base, proof_config: ProofConfig,
                         hasher: str = "poseidon2", device="cuda"):
     """Setup oracle (sigmas ++ constants ++ table columns) on ``device`` and
     the VK; the cap equals the reference's."""
     dev = resolve_device(device)
-    _check_supported(cs, hasher)
+    _check_supported(hasher)
     cols = np.concatenate([setup_base.copy_permutation_polys,
                            setup_base.constant_columns,
                            setup_base.lookup_tables_columns], axis=0)
@@ -108,9 +125,11 @@ class DeviceProver:
         self._witness_program = False  # not built yet; then a program or None
 
     def _invariant_tables(self):
-        """Device tables that depend only on the domain: X over the quotient
-        and FRI domains, the unnormalized L1, 1/Z_H per quotient coset and
-        the FRI inverse roots."""
+        """Device tables that stay the same from prove to prove: X over the
+        quotient and FRI domains, the unnormalized L1, 1/Z_H per quotient
+        coset and the FRI inverse roots (the domain's), and in the
+        general-purpose lookup modes the marker's selector over the base and
+        the flat quotient domain (the setup's)."""
         if self._tables is None:
             n, qd, fri_lde, dev = self.n, self.qd, self.fri_lde, self.device
             vi = dops.vanishing_inverse_per_coset(n, qd)
@@ -124,6 +143,17 @@ class DeviceProver:
                 "x_vals": gl.from_u64(npgl.powers(gl.domain_generator(
                     n.bit_length() - 1), n), dev),
             }
+            lp = self.cs.lookup_parameters
+            if lp.lookup_is_allowed and not lp.is_specialized:
+                sb = self.artifacts.setup_base
+                orc = self.artifacts.setup_oracle
+                first = sb.copy_permutation_polys.shape[0]
+                path = sb.selector_paths[0]  # the marker is evaluator 0
+                self._tables["sel_base"] = _selector_product(
+                    path, orc.lagrange.T[first:], n, dev)
+                self._tables["sel_flat"] = _selector_product(
+                    path, [orc.flat(first + k, qd) for k in range(len(path))],
+                    qd * n, dev)
         return self._tables
 
     def witness_program(self):
@@ -135,6 +165,7 @@ class DeviceProver:
                 if DeviceWitnessProgram.supported(self.cs) else None)
         return self._witness_program
 
+    @torch.inference_mode()
     def prove(self, transcript_kind: str = "poseidon",
               hasher: str = "poseidon2", verbose: bool = False,
               device_transcript: bool = None, on_stage=None) -> Proof:
@@ -151,7 +182,7 @@ class DeviceProver:
         each stage through it)."""
         cs = self.cs
         cfg = self.cfg
-        _check_supported(cs, hasher)
+        _check_supported(hasher)
         dev = self.device
         ops = TorchOps(dev)
         sb = self.artifacts.setup_base
@@ -294,7 +325,13 @@ class DeviceProver:
             intermediates.append(prev)
         stage("copy-permutation z")
 
-        # -- stage 3: lookup A/B polys (specialized mode) ---------------------
+        # -- stage 3: lookup A/B polys ------------------------------------------
+        # Specialized modes: A_i = 1/agg_i on every row. General-purpose
+        # modes: A_i = sel/agg_i, sel the marker gate's selector, so A_i is
+        # 0 off the marker rows. A zero agg_i (inverted to 0, as the
+        # reference's batch inverse does) on a row that looks up leaves
+        # A·agg - sel = -1 there: the quotient is then not divisible, which
+        # the top-coefficient check (runtime_asserts) reports.
         lookup_a_polys, lookup_b_polys = [], []
         num_lookup_subargs = lp.num_sublookup_arguments_for_geometry(geometry)
         if lp.lookup_is_allowed:
@@ -302,8 +339,12 @@ class DeviceProver:
             lookup_gamma = ext_challenge()
             width = lp.lookup_width()
             gamma_pows = pow_table(lookup_gamma, width + 1)
-            pw = lp.specialized_columns_per_repetition()
-            base_off = geometry.num_columns_under_copy_permutation
+            if lp.is_specialized:
+                pw = lp.specialized_columns_per_repetition()
+                base_off = geometry.num_columns_under_copy_permutation
+            else:
+                pw = lp.columns_per_subargument()  # the id column included
+                base_off = 0
             tid_cols = sb.table_ids_column_idxes
 
             def aggregate(cols, tid_col, size):
@@ -318,7 +359,10 @@ class DeviceProver:
                 cols = [var_base[base_off + rep * pw + i] for i in range(pw)]
                 tid = const_base[tid_cols[min(rep, len(tid_cols) - 1)]] \
                     if lp.id_in_constant else None
-                lookup_a_polys.append(aggregate(cols, tid, n).inv())
+                a_poly = aggregate(cols, tid, n).inv()
+                if not lp.is_specialized:
+                    a_poly = a_poly.mul_base(tables["sel_base"])
+                lookup_a_polys.append(a_poly)
             agg_t = aggregate(list(table_base), None, n)
             lookup_b_polys.append(agg_t.inv().mul_base(mult_base[0]))
         stage("lookup A/B")
@@ -376,14 +420,16 @@ class DeviceProver:
             return EV(stage2_flat[i], stage2_flat[i + 1])
 
         a_off = 2 * (1 + num_intermediates)
-        # 6a. lookup terms: A·agg - 1 per subargument, B·agg_t - mult
+        # 6a. lookup terms: A·agg - 1 (specialized) or A·agg - sel (general)
+        # per subargument, B·agg_t - mult
         if lp.lookup_is_allowed:
+            one = 1 if lp.is_specialized else tables["sel_flat"]
             for rep in range(num_lookup_subargs):
                 cols = [var_flat[base_off + rep * pw + i] for i in range(pw)]
                 tid = const_flat[tid_cols[min(rep, len(tid_cols) - 1)]] \
                     if lp.id_in_constant else None
                 term = ext_flat(a_off + 2 * rep) * aggregate(cols, tid, size)
-                term = EV(gl.sub(term.c0, 1), term.c1)
+                term = EV(gl.sub(term.c0, one), term.c1)
                 acc = acc + term.scale(next(lookup_alphas))
             b_off = a_off + 2 * num_lookup_subargs
             term = ext_flat(b_off) * aggregate(table_flat, None, size)
@@ -405,30 +451,17 @@ class DeviceProver:
                     acc = acc + EV(*ext2.base_scale(term, next(spec_alphas)))
 
         # 6c. general-purpose gate terms under selector path products
-        selector_cache = {}
-
-        def selector_product(path):
-            key = tuple(path)
-            if key not in selector_cache:
-                prod = gl.full((size,), 1, dev)
-                for k, bit in enumerate(path):
-                    col = const_flat[k]
-                    prod = gl.mul(prod, col if bit else gl.sub(gl.full((), 1, dev), col))
-                selector_cache[key] = prod
-            return selector_cache[key]
-
         for ev_idx, ev in enumerate(cs.evaluators_general):
             if ev.num_quotient_terms == 0:
                 continue
             path = sb.selector_paths[ev_idx]
-            sel = selector_product(path)
+            sel = _selector_product(path, const_flat, size, dev)
             src = TraceView(var_flat, wit_flat, const_flat[len(path):])
             terms = ev.evaluate_repetitions(src, ops, geometry)
             assert len(terms) == ev.num_quotient_terms * ev.num_repetitions(geometry)
             for term in terms:
                 contrib = gl.mul(term.expand(size), sel)
                 acc = acc + EV(*ext2.base_scale(contrib, next(general_alphas)))
-        del selector_cache
 
         # 6d. copy-permutation terms
         z_flat = ext_flat(0)

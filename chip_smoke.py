@@ -33,8 +33,10 @@ after:
   device transcript alternate with two with the host transcript
   (`device_transcript=False`), which must give the same digest; both sets
   of times are printed. Each mode's stage split comes from synced proves
-  alternated with the other mode's, and each stage's kernel count and
-  device time from one prove a mode under `torch.profiler`. One warm prove
+  alternated with the other mode's, and each stage's torch ops from one
+  prove a mode with its ops counted (`scripts/torch_profile_flagship.py`
+  gives a prove's kernels, device time and idle share under
+  `torch.profiler`). One warm prove
   in each mode is run under `torch.cuda.set_sync_debug_mode("warn")` to
   count its synchronizing calls by source line: at most 3 with the device
   transcript (the handoff, the query phase's one fetch, the closing
@@ -43,8 +45,9 @@ after:
   times it and prints, per kernel, the sum over a prove of launches x time
   and of launches x (time - bound) (likewise the byte hashes' shapes of a
   Blake2s and a Keccak-256 prove, a `*_node_layers` launch bound by the
-  summed bound of its layers, and the shapes of a Keccak-256 circuit prove
-  and of a recursion outer prove, each shape checked and timed once);
+  summed bound of its layers, and the shapes of a Keccak-256 circuit prove,
+  of a recursion outer prove and of the lookup-heavy circuit's proves, each
+  shape checked and timed once);
 - the non-recursive flagship: the same circuit in the reference's own
   non-recursive configuration, the Blake2s transcript (on the host) and
   Blake2s trees (K8), LDE 8, cap 16, security 100, no PoW: setup, one cold
@@ -57,14 +60,16 @@ after:
   no prove may launch `*_node_layers` more than 16 times;
 - the Keccak-256 circuit (BASELINE config 3): the 1 kB Keccak-256 gadget
   circuit (2^16 rows), Poseidon transcript, Poseidon2 trees: synthesis,
-  setup, one cold and two warm proves, each proof's digest equal to
-  `boojum_tpu_torch/data/keccak256_1kB_proof_digest.json`, the last with
-  its synchronizing calls counted (at most 3), then one synced prove with
-  its torch ops counted by stage (`scripts/torch_profile_flagship.py
-  --config keccak256` profiles it). The proves must take the device
-  witness program (`materialize_witness_columns` never called) and launch
-  `ntt_stage`, the Poseidon2 leaf and node entries and `poseidon_sponge`,
-  and no plain version;
+  then the per-circuit path `circuit_path`: setup, one cold and two warm
+  proves, each proof's digest equal to
+  `boojum_tpu_torch/data/keccak256_1kB_proof_digest.json` and its
+  synchronizing calls counted (a warm prove at most 3), one synced prove
+  for its stage split and one with its torch ops counted by stage
+  (`scripts/torch_profile_flagship.py --config keccak256` profiles it).
+  The proves must take the device witness program
+  (`materialize_witness_columns` never called) and launch `ntt_stage`, the
+  Poseidon2 leaf and node entries and `poseidon_sponge`, and no plain
+  version;
 - the recursion configuration (BASELINE config 2): the inner proof of a
   2^5-row circuit with two public inputs and the outer proof of the circuit
   that verifies it (4096 rows, 132 copy columns, degree 8, flattened
@@ -77,9 +82,25 @@ after:
   profiles it; `torch.profiler` takes minutes on a prove of a million
   launches); the outer circuit over an inner proof with one value at z
   bumped must be unsatisfied;
+- the lookup-heavy circuit (BASELINE config 4): 1,047,552 binop lookups
+  on 32 copy columns, a 2^17-row domain, Poseidon transcript, Poseidon2
+  trees, LDE 8, cap 16, in its specialized lookup mode (the reference's:
+  width 3 in 8 repetitions, a shared constant table id) and in the
+  general-purpose mode (`table_id_as_constant(width=3)`, the lookups on
+  the marker gate's rows): for each, synthesis, then `circuit_path` as for
+  the Keccak-256 circuit: setup, one cold and warm proves (two
+  specialized, one general), each timed, held to
+  `boojum_tpu_torch/data/lookup_heavy_proof_digest.json` or
+  `lookup_heavy_general_proof_digest.json` and with its synchronizing calls
+  counted (a warm prove at most 3), one synced prove for its stage split,
+  one with its torch ops counted by stage, and the peak device memory
+  (`scripts/torch_profile_flagship.py --config lookup_heavy` or
+  `lookup_heavy_general` profiles a prove); every prove must take the
+  device witness program;
 - the verifier: the port's `verify` (host code, no launch) accepts the
   Poseidon, Blake2s and Keccak-256 flagship proofs, the Keccak-256 circuit
-  proof and the recursion configuration's inner and outer proofs, each
+  proof, the recursion configuration's inner and outer proofs and the
+  lookup-heavy circuit's two proofs, each
   timed, and rejects the Blake2s proof with one witness leaf element
   flipped;
 - the standalone NTT: runs `pallas_ntt.ntt_any` at (2^24, 8), whose output
@@ -152,9 +173,13 @@ BYTE_LIBS = {"blake2s": "blake2s", "keccak256": "keccak"}
 H100_INT_PER_S = H100_IMAD_PER_S
 # warm proves of the Blake2s configuration
 BYTE_WARM_PROVES = 2
-# warm proves of the Keccak-256 circuit (the last one with its synchronizing
-# calls counted)
+# warm proves of the Keccak-256 circuit after its cold prove
 KECCAK_WARM_PROVES = 2
+# warm proves of each variant of the lookup-heavy circuit (BASELINE config
+# 4), after its cold prove: the specialized (the reference's) and the
+# general-purpose variant
+LOOKUP_VARIANTS = (("specialized", "lookup_heavy_proof_digest.json", 2),
+                   ("general", "lookup_heavy_general_proof_digest.json", 1))
 # most `*_node_layers` launches a byte-tree prove may make: it makes 10, two
 # for each 2^19-leaf tree and one for the 2^16, 2^13, 2^10 and 2^7 ones
 MAX_NODE_LAUNCHES = 16
@@ -1140,14 +1165,12 @@ def stage_profiles(prover, ref):
     """Where each transcript mode's prove spends its time, stage by stage,
     from one process: PROFILE_ROUNDS synced proves a mode, alternated (the
     order flipped every round), give each stage's host wall clock (the mean;
-    the device syncs at every stage end); then one prove a mode under
-    `torch.profiler` (CUDA activity only) gives each stage's kernel count
-    and the summed device time of its kernels, each stage profiled apart
-    through the prove's ``on_stage`` hook. Every proof must be the
-    reference's. Prints one JSON line a mode and returns them."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    the device syncs at every stage end); then one prove a mode with its
+    torch ops counted (`op_counted_prove`) gives each stage's ops, about one
+    kernel launch each. Every proof must be the reference's. Prints one JSON
+    line a mode and returns them. (`scripts/torch_profile_flagship.py`
+    gives a prove's kernels, device time and idle share under
+    `torch.profiler`.)"""
     modes = {"device": {}, "host": dict(device_transcript=False)}
     walls = {m: collections.defaultdict(list) for m in modes}
     for i in range(PROFILE_ROUNDS):
@@ -1161,45 +1184,27 @@ def stage_profiles(prover, ref):
                 walls[mode][label].append(t)
     out = {}
     for mode, kw in modes.items():
-        rows, cur = {}, [None]
-
-        def start():
-            cur[0] = profile(activities=[ProfilerActivity.CUDA])
-            cur[0].__enter__()
-
-        def on_stage(label):
-            cur[0].__exit__(None, None, None)
-            kernels = [e for e in cur[0].events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            rows[label] = dict(
-                kernels=len(kernels),
-                device_ms=round(sum(e.time_range.end - e.time_range.start
-                                    for e in kernels) / 1e3, 3))
-            start()
-
-        start()
-        try:
-            proof = prover.prove(ref["transcript"], ref["hasher"],
-                                 on_stage=on_stage, **kw)
-        finally:
-            cur[0].__exit__(None, None, None)
+        proof, ops = op_counted_prove(lambda on_stage: prover.prove(
+            ref["transcript"], ref["hasher"], on_stage=on_stage, **kw))
         if proof_digest(proof) != ref["proof_json_sha256"]:
-            raise AssertionError("the profiled %s-transcript proof differs "
+            raise AssertionError("the op-counted %s-transcript proof differs "
                                  "from the reference" % mode)
-        for label, row in rows.items():
+        rows = {}
+        for label, n in ops.items():
             ts = walls[mode][label]
-            row["wall_s"] = round(sum(ts) / len(ts), 4)
-            row["profiled_wall_s"] = round(prover.last_stage_times[label], 4)
+            rows[label] = dict(torch_ops=n,
+                               wall_s=round(sum(ts) / len(ts), 4),
+                               counted_wall_s=round(
+                                   prover.last_stage_times[label], 4))
         out[mode] = rows
         log("flagship stage profile, %s transcript (wall: mean of %d synced "
-            "proves, alternated; kernels and device time: one profiled "
-            "prove): %s" % (mode, PROFILE_ROUNDS, json.dumps(rows)))
+            "proves, alternated; torch ops: one counted prove): %s"
+            % (mode, PROFILE_ROUNDS, json.dumps(rows)))
     for mode in modes:
         log("flagship synced proves, %s transcript: total wall %.4f s a "
-            "prove (mean), device time %.1f ms, %d kernels (profiled)" % (
+            "prove (mean), %d torch ops (counted)" % (
                 mode, sum(r["wall_s"] for r in out[mode].values()),
-                sum(r["device_ms"] for r in out[mode].values()),
-                sum(r["kernels"] for r in out[mode].values())))
+                sum(r["torch_ops"] for r in out[mode].values())))
     return out
 
 
@@ -1530,36 +1535,25 @@ def log_stage_ops(name, rows, walls):
     return ops
 
 
-def keccak_circuit():
-    """BASELINE config 3: the 1 kB Keccak-256 circuit (domain 2^16, the
-    flagship's geometry), Poseidon transcript, Poseidon2 trees, LDE 8, cap
-    16. Synthesis, base and device setup, one cold and KECCAK_WARM_PROVES
-    warm proves with the default device transcript, each proof's digest
-    against `keccak256_1kB_proof_digest.json`, the last warm one with its
-    synchronizing calls counted (at most MAX_SYNCS["device"]); then one
-    synced prove with its torch ops counted by stage. Every prove must take the device witness program
-    (`materialize_witness_columns` never called). Returns the counts of the
-    path, the launches by shape of its setup and of one warm prove, and the
-    proof and VK."""
-    import numpy as np
+def circuit_path(name, cs, ref, warm):
+    """The path of one circuit at full size (`keccak_circuit` and each
+    variant of `lookup_heavy`), with the launch counts set to 0 before it
+    and read after it: base setup and device setup of the synthesized
+    ``cs``, one cold and ``warm`` warm proves with the default device
+    transcript, each timed, held to the digest of ``ref`` and with its
+    synchronizing calls counted (a warm prove at most MAX_SYNCS["device"]),
+    then one synced prove for its stage split and one with its torch ops
+    counted by stage; peak device memory. Every prove must take the device
+    witness program (`materialize_witness_columns` never called) and launch
+    `ntt_stage`, the Poseidon2 leaf and node entries and `poseidon_sponge`,
+    and no plain version. Returns the counts of the path, the launches by
+    shape of its setup and of its last warm prove, and its VK and proof."""
     import torch
     from boojum_tpu_torch.cs.setup import create_base_setup
-    from boojum_tpu_torch.gadgets.keccak256 import build_keccak256_circuit
     from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                          create_device_setup)
 
-    ref = load_digest("keccak256_1kB_proof_digest.json")
     sha = ref["proof_json_sha256"]
-    data = bytes(np.random.default_rng(ref["seed"]).integers(
-        0, 256, ref["input_len"], dtype=np.uint8))
-    t0 = time.time()
-    cs, _ = build_keccak256_circuit(data, ref["max_trace_len"])
-    cs.pad_and_shrink()
-    t_synth = time.time() - t0
-    if cs.final_trace_len != ref["domain"]:
-        raise AssertionError("the keccak256 circuit has %d rows, the "
-                             "reference %d" % (cs.final_trace_len,
-                                               ref["domain"]))
     host_witness = host_witness_calls()
     reset_counts()  # counts of this path only
     torch.cuda.reset_peak_memory_stats()
@@ -1572,49 +1566,84 @@ def keccak_circuit():
         cs, sb, cfg, ref["hasher"], device="cuda"))
     prover = DeviceProver(cs, art, cfg, device="cuda")
     torch.cuda.synchronize()
-    t_setup = time.time() - t0
-    log("keccak256 circuit (%d bytes): synthesis %.2f s, domain %d, "
-        "create_base_setup %.2f s, create_device_setup %.2f s" % (
-            ref["input_len"], t_synth, cs.final_trace_len, t_base, t_setup))
-    proof, _, shapes = timed_proves("keccak256 circuit (cold, then warm)",
-                                    prover, ref, sha, KECCAK_WARM_PROVES)
-    t = time.time()
-    sites, synced = count_syncs(
-        lambda: prover.prove(ref["transcript"], ref["hasher"]))
-    t = time.time() - t
+    log("%s: domain %d, create_base_setup %.2f s, create_device_setup %.2f s"
+        % (name, cs.final_trace_len, t_base, time.time() - t0))
+
+    def prove():
+        t = time.time()
+        proof = prover.prove(ref["transcript"], ref["hasher"])
+        torch.cuda.synchronize()
+        return proof, time.time() - t
+
+    times, shapes = [], None
+    for i in range(1 + warm):
+        (sites, (proof, t)), shapes = launch_shapes(
+            lambda: count_syncs(prove))
+        times.append(t)
+        syncs = sum(sites.values())
+        log("%s %s prove: %.4f s, proof_to_json sha256 %s; synchronizing "
+            "calls %d, by source line: %s"
+            % (name, "warm" if i else "cold", t, proof_digest(proof), syncs,
+               json.dumps(dict(sites.most_common()))))
+        if proof_digest(proof) != sha:
+            raise AssertionError("a %s proof differs from the reference "
+                                 "(sha256 %s)" % (name, sha))
+        if i > 0 and syncs > MAX_SYNCS["device"]:
+            raise AssertionError("a warm %s prove made %d synchronizing "
+                                 "calls, more than %d"
+                                 % (name, syncs, MAX_SYNCS["device"]))
+    synced = prover.prove(ref["transcript"], ref["hasher"],
+                          on_stage=lambda label: None)
     if proof_digest(synced) != sha:
-        raise AssertionError("the sync-counted keccak256 proof differs")
-    log("keccak256 circuit synchronizing calls, the last warm prove: %d "
-        "(%.3f s); by source line: %s" % (sum(sites.values()), t,
-                                          json.dumps(dict(sites.most_common()))))
-    if sum(sites.values()) > MAX_SYNCS["device"]:
-        raise AssertionError("a warm keccak256 prove made %d synchronizing "
-                             "calls, more than %d" % (sum(sites.values()),
-                                                      MAX_SYNCS["device"]))
+        raise AssertionError("the synced %s proof differs" % name)
+    log("%s synced prove, wall by stage: %s" % (name, json.dumps(
+        {k: round(v, 4) for k, v in prover.last_stage_times.items()})))
     counted, rows = op_counted_prove(lambda on_stage: prover.prove(
         ref["transcript"], ref["hasher"], on_stage=on_stage))
     if proof_digest(counted) != sha:
-        raise AssertionError("the op-counted keccak256 proof differs")
-    log_stage_ops("keccak256 circuit", rows, prover.last_stage_times)
+        raise AssertionError("the op-counted %s proof differs" % name)
+    log_stage_ops(name, rows, prover.last_stage_times)
     counts = read_counts()
-    log("keccak256 circuit: peak device memory %.2f GB; launches (setup + "
-        "%d proves): %s" % (torch.cuda.max_memory_allocated() / 1e9,
-                            2 + KECCAK_WARM_PROVES, json.dumps(counts)))
-    for name in ("ntt_stage", "poseidon2_leaf_hashes", "poseidon2_node_layer",
-                 "poseidon_sponge"):
-        if counts[name] <= 0:
-            raise AssertionError("%s never launched on the keccak256 path"
-                                 % name)
+    host_witness = host_witness_calls() - host_witness
+    log("%s: cold prove %.4f s, warm %s s; peak device memory %.2f GB; "
+        "host witness calls %d; launches (setup + %d proves): %s"
+        % (name, times[0], ", ".join("%.4f" % t for t in times[1:]),
+           torch.cuda.max_memory_allocated() / 1e9, host_witness, 3 + warm,
+           json.dumps(counts)))
+    for kernel in ("ntt_stage", "poseidon2_leaf_hashes",
+                   "poseidon2_node_layer", "poseidon_sponge"):
+        if counts[kernel] <= 0:
+            raise AssertionError("%s never launched on the %s path"
+                                 % (kernel, name))
     if counts["plain_on_cuda"]:
         raise AssertionError("a plain version ran on a CUDA tensor")
-    host_witness = host_witness_calls() - host_witness
     if host_witness:
-        raise AssertionError("the keccak256 prove called "
-                             "materialize_witness_columns %d times"
-                             % host_witness)
-    log("keccak256 circuit: device witness program (materialize_witness_"
-        "columns never called)")
-    return counts, dict(setup=setup_shapes, prove=shapes), proof, art.vk
+        raise AssertionError("the %s prove called materialize_witness_"
+                             "columns %d times" % (name, host_witness))
+    return counts, dict(setup=setup_shapes, prove=shapes), (art.vk, proof)
+
+
+def keccak_circuit():
+    """BASELINE config 3: the 1 kB Keccak-256 circuit (domain 2^16, the
+    flagship's geometry), Poseidon transcript, Poseidon2 trees, LDE 8, cap
+    16: synthesis, then `circuit_path` with KECCAK_WARM_PROVES warm proves,
+    held to `keccak256_1kB_proof_digest.json`."""
+    import numpy as np
+    from boojum_tpu_torch.gadgets.keccak256 import build_keccak256_circuit
+
+    ref = load_digest("keccak256_1kB_proof_digest.json")
+    data = bytes(np.random.default_rng(ref["seed"]).integers(
+        0, 256, ref["input_len"], dtype=np.uint8))
+    t0 = time.time()
+    cs, _ = build_keccak256_circuit(data, ref["max_trace_len"])
+    cs.pad_and_shrink()
+    log("keccak256 circuit (%d bytes): synthesis %.2f s" % (
+        ref["input_len"], time.time() - t0))
+    if cs.final_trace_len != ref["domain"]:
+        raise AssertionError("the keccak256 circuit has %d rows, the "
+                             "reference %d" % (cs.final_trace_len,
+                                               ref["domain"]))
+    return circuit_path("keccak256 circuit", cs, ref, KECCAK_WARM_PROVES)
 
 
 def recursion_outer():
@@ -1730,6 +1759,43 @@ def recursion_outer():
         inner=(iart.vk, inner_proof), outer=(oart.vk, outer_proof))
 
 
+def lookup_heavy():
+    """BASELINE config 4, the lookup-heavy circuit (`scripts/bench_suite.py`
+    `bench_lookup_heavy`): 1,047,552 binop lookups at width 3 on 32 copy
+    columns and a 2^17-row domain (an LDE of 2^20 rows), Poseidon
+    transcript, Poseidon2 trees, LDE 8, cap 16, built by
+    `gadgets.lookup_heavy.build_lookup_heavy_circuit` in each of the
+    LOOKUP_VARIANTS: the specialized lookups (8 repetitions, a shared
+    constant table id) and the general-purpose ones (the lookup marker's
+    rows, 10 subarguments a row). Each variant: synthesis, then
+    `circuit_path` with its number of warm proves, held to its digest.
+    Returns `circuit_path`'s result by variant."""
+    import torch
+    from boojum_tpu_torch.gadgets.lookup_heavy import \
+        build_lookup_heavy_circuit
+
+    out = {}
+    for variant, digest_file, warm in LOOKUP_VARIANTS:
+        name = "lookup heavy %s" % variant
+        ref = load_digest(digest_file)
+        t0 = time.time()
+        cs = build_lookup_heavy_circuit(ref["n_lookups"], ref["seed"], variant)
+        lp = cs.lookup_parameters
+        subargs = lp.num_sublookup_arguments_for_geometry(cs.geometry)
+        log("%s (%d lookups, %s, %d subarguments): synthesis %.2f s"
+            % (name, ref["n_lookups"], lp.mode, subargs, time.time() - t0))
+        if (cs.final_trace_len, subargs) != (ref["domain"],
+                                             ref["subarguments"]):
+            raise AssertionError("the %s circuit has %d rows and %d "
+                                 "subarguments, the reference %d and %d"
+                                 % (name, cs.final_trace_len, subargs,
+                                    ref["domain"], ref["subarguments"]))
+        out[variant] = circuit_path(name, cs, ref, warm)
+        del cs
+        torch.cuda.empty_cache()
+    return out
+
+
 def verify_path(proofs):
     """The port's `verify` (host code on Python ints) on each proof,
     timed, and on the Blake2s proof with one witness leaf element
@@ -1829,10 +1895,12 @@ def main():
     kec_counts, kec_shapes, kec_proof, kec_vk = byte_flagship(
         ctx, "keccak256", 0)
     phase("keccak256 flagship")
-    kcc_counts, kcc_shapes, kcc_proof, kcc_vk = keccak_circuit()
+    kcc_counts, kcc_shapes, (kcc_vk, kcc_proof) = keccak_circuit()
     phase("keccak256 circuit")
     rec_counts, rec_shapes, rec_proofs = recursion_outer()
     phase("recursion outer")
+    lookups = lookup_heavy()
+    phase("lookup heavy")
     verify_secs = verify_path({
         "poseidon": (ctx["vk"], ctx["proof"], ctx["ref"]["transcript"],
                      ctx["ref"]["hasher"]),
@@ -1840,7 +1908,9 @@ def main():
         "keccak256": (kec_vk, kec_proof, "keccak256", "keccak256"),
         "keccak256 circuit": (kcc_vk, kcc_proof, "poseidon", "poseidon2"),
         "recursion inner": (*rec_proofs["inner"], "poseidon", "poseidon2"),
-        "recursion outer": (*rec_proofs["outer"], "poseidon", "poseidon2")})
+        "recursion outer": (*rec_proofs["outer"], "poseidon", "poseidon2"),
+        **{"lookup heavy " + v: (*lk[2], "poseidon", "poseidon2")
+           for v, lk in lookups.items()}})
     phase("verify")
     memo = {}
     costs, prove_errs = per_prove_costs(
@@ -1849,6 +1919,9 @@ def main():
     path_costs = {"flagship prove": costs}
     new_paths = [("keccak256 circuit " + k, v) for k, v in kcc_shapes.items()]
     new_paths += [("recursion " + k, v) for k, v in rec_shapes.items()]
+    new_paths += [("lookup heavy %s %s" % (variant, k), v)
+                  for variant, lk in lookups.items()
+                  for k, v in lk[1].items()]
     for label, shapes in new_paths:
         path_costs[label], errs = per_prove_costs(
             rng, label, *shapes[:2], {}, shapes[2], {}, memo)
@@ -1864,8 +1937,10 @@ def main():
 
     def row(name, source, replaces, launches, err, t):
         # launches: the kernel's main paths, the flagship's or its own, and
-        # the keccak256 circuit's and the recursion configuration's
-        launches += kcc_counts[name] + rec_counts[name]
+        # the keccak256 circuit's, the recursion configuration's and the
+        # lookup-heavy circuit's two variants'
+        launches += kcc_counts[name] + rec_counts[name] + sum(
+            lk[0][name] for lk in lookups.values())
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches, max_abs_err=err, ms=t["ms"],
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

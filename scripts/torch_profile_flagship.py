@@ -15,7 +15,10 @@ given against the unprofiled warm prove's wall time.
 (`flagship_proof_digest.json`). ``keccak256``: the 1 kB Keccak-256 circuit
 (`keccak256_1kB_proof_digest.json`). ``recursion_outer``: the outer proof
 of the recursion configuration (`recursion_outer_proof_digest.json`; its
-inner proof is made first). Each prove's digest is checked.
+inner proof is made first). ``lookup_heavy`` / ``lookup_heavy_general``:
+the lookup-heavy circuit of BASELINE config 4, specialized or
+general-purpose (`lookup_heavy_proof_digest.json`,
+`lookup_heavy_general_proof_digest.json`). Each prove's digest is checked.
 """
 
 import argparse
@@ -58,6 +61,13 @@ def build(config):
         cs = build_outer_circuit(iart.vk, inner_proof, icfg,
                                  iref["transcript"], iref["hasher"],
                                  ref["max_trace_len"])
+    elif config.startswith("lookup_heavy"):
+        from boojum_tpu_torch.gadgets.lookup_heavy import \
+            build_lookup_heavy_circuit
+        ref = load(config + "_proof_digest.json")
+        cs = build_lookup_heavy_circuit(
+            ref["n_lookups"], ref["seed"],
+            "general" if config.endswith("general") else "specialized")
     else:
         if config == "keccak256":
             from boojum_tpu_torch.gadgets.keccak256 import \
@@ -81,7 +91,8 @@ def build(config):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "keccak256", "recursion_outer"))
+                    choices=("flagship", "keccak256", "recursion_outer",
+                             "lookup_heavy", "lookup_heavy_general"))
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile

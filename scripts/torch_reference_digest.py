@@ -31,6 +31,17 @@ trees, LDE 8, cap 16, security 100 (`keccak256_1kB_proof_digest.json`).
 verifies it (132 copy columns, 8 constant columns, degree 8, flattened
 Poseidon and Poseidon2 gates) proved at LDE 8, cap 16, security 100; both
 digests go to `recursion_outer_proof_digest.json`.
+
+``--config lookup_heavy``: the lookup-heavy circuit of
+`scripts/bench_suite.py` (`bench_lookup_heavy`): 1,047,552 binop lookups
+(a, b and the packed xor / or / and from `default_rng(11)`) at width 3 in 8
+specialized repetitions with a shared constant table id, 32 copy columns,
+4 constant columns, a 2^17-row domain; Poseidon transcript, Poseidon2
+trees, LDE 8, cap 16, security 100 (`lookup_heavy_proof_digest.json`).
+``--config lookup_heavy_general``: the same construction with the
+general-purpose `LookupParameters.table_id_as_constant(width=3)` in place
+of the specialized mode (`lookup_heavy_general_proof_digest.json`). Both
+records carry the seconds the run took.
 """
 
 import argparse
@@ -58,6 +69,11 @@ KECCAK_INPUT_LEN = 1024
 INNER_SEED = 11
 INNER_CONFIG = dict(fri_lde_factor=8, merkle_tree_cap_size=8,
                     security_level=100, pow_bits=0)
+LOOKUP_SEED = 11
+LOOKUP_COUNT = (1 << 20) - 1024
+LOOKUP_GEOMETRY = dict(num_columns_under_copy_permutation=32,
+                       num_witness_columns=0, num_constant_columns=4,
+                       max_allowed_constraint_degree=4)
 OUTER_GEOMETRY = dict(num_columns_under_copy_permutation=132,
                       num_witness_columns=0, num_constant_columns=8,
                       max_allowed_constraint_degree=8)
@@ -252,10 +268,86 @@ def recursion_outer():
     }, times
 
 
+def lookup_heavy_circuit(mode, n_lookups=LOOKUP_COUNT, seed=LOOKUP_SEED):
+    """`scripts/bench_suite.py:bench_lookup_heavy`'s circuit, built with the
+    JAX package and padded; ``mode`` "general" takes
+    `LookupParameters.table_id_as_constant(width=3)` instead of the
+    specialized width-3 x 8 mode."""
+    from boojum_tpu.cs import (ConstraintSystem, CSConfig, CSGeometry,
+                               LookupParameters)
+    from boojum_tpu.cs.gates import ConstantsAllocatorGate, FmaGate, NopGate
+    from boojum_tpu.gadgets import tables
+
+    rng = np.random.default_rng(seed)
+    cs = ConstraintSystem(CSGeometry(**LOOKUP_GEOMETRY), MAX_TRACE_LEN,
+                          CSConfig.dev())
+    if mode == "general":
+        cs.allow_lookup(LookupParameters.table_id_as_constant(width=3))
+    else:
+        cs.allow_lookup(LookupParameters.specialized_with_table_id_as_constant(
+            width=3, num_repetitions=8, share_table_id=True))
+    for g in (ConstantsAllocatorGate, FmaGate, NopGate):
+        cs.allow_gate(g)
+    tid = cs.add_lookup_table(tables.create_binop_table())
+    a = rng.integers(0, 256, n_lookups, dtype=np.uint64)
+    b = rng.integers(0, 256, n_lookups, dtype=np.uint64)
+    packed = ((a ^ b) << np.uint64(32)) | ((a | b) << np.uint64(16)) | (a & b)
+    av = cs.alloc_variables_with_values(a)
+    bv = cs.alloc_variables_with_values(b)
+    cv = cs.alloc_variables_with_values(packed)
+    cs.enforce_lookup_batch(tid, np.stack([av, bv, cv]))
+    cs.pad_and_shrink()
+    return cs
+
+
+def lookup_heavy(mode):
+    """The host proof of the lookup-heavy circuit in ``mode``."""
+    from boojum_tpu.cs.setup import create_base_setup
+    from boojum_tpu.prover import ProofConfig, create_setup_and_vk, prove
+
+    t0 = time.time()
+    cs = lookup_heavy_circuit(mode)
+    t_synth = time.time() - t0
+    t0 = time.time()
+    sb = create_base_setup(cs)
+    cfg = ProofConfig(**CONFIG)
+    art = create_setup_and_vk(cs, sb, cfg, "poseidon2")
+    t_setup = time.time() - t0
+    t0 = time.time()
+    proof = prove(cs, art, cfg, "poseidon", "poseidon2")
+    t_prove = time.time() - t0
+    chars, sha = digest(proof)
+    lp = cs.lookup_parameters
+    times = dict(synthesis_s=t_synth, setup_s=t_setup, prove_s=t_prove)
+    return {
+        "circuit": "lookup_heavy (scripts/bench_suite.py:bench_lookup_heavy)"
+                   + (", general-purpose table_id_as_constant(width=3)"
+                      if mode == "general" else ""),
+        "mode": mode,
+        "seed": LOOKUP_SEED,
+        "n_lookups": LOOKUP_COUNT,
+        "lookup_parameters": dict(mode=lp.mode, width=lp.width,
+                                  num_repetitions=lp.num_repetitions,
+                                  share_table_id=lp.share_table_id),
+        "subarguments": lp.num_sublookup_arguments_for_geometry(cs.geometry),
+        "geometry": LOOKUP_GEOMETRY,
+        "max_trace_len": MAX_TRACE_LEN,
+        "domain": cs.final_trace_len,
+        "config": CONFIG,
+        "transcript": "poseidon",
+        "hasher": "poseidon2",
+        "proof_json_chars": chars,
+        "proof_json_sha256": sha,
+        "made_by": MADE_BY,
+        "runtime_s": {k: round(v, 1) for k, v in times.items()},
+    }, times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "keccak256", "recursion_outer"))
+                    choices=("flagship", "keccak256", "recursion_outer",
+                             "lookup_heavy", "lookup_heavy_general"))
     ap.add_argument("--transcript", default="poseidon", choices=KINDS,
                     help="flagship only")
     ap.add_argument("--hasher", default="poseidon2", choices=KINDS[1:],
@@ -264,7 +356,8 @@ def main():
                     help="default: boojum_tpu_torch/data/flagship_proof_"
                     "digest.json, flagship_<hasher>_proof_digest.json for "
                     "another flagship transcript, keccak256_1kB_proof_"
-                    "digest.json or recursion_outer_proof_digest.json")
+                    "digest.json, recursion_outer_proof_digest.json or "
+                    "lookup_heavy[_general]_proof_digest.json")
     args = ap.parse_args()
 
     import jax
@@ -275,11 +368,17 @@ def main():
         out_path = args.out or default_out(args.transcript, args.hasher)
     else:
         rec, times = {"keccak256": keccak256,
-                      "recursion_outer": recursion_outer}[args.config]()
+                      "recursion_outer": recursion_outer,
+                      "lookup_heavy": lambda: lookup_heavy("specialized"),
+                      "lookup_heavy_general": lambda: lookup_heavy("general"),
+                      }[args.config]()
         out_path = args.out or os.path.join(
             ROOT, "boojum_tpu_torch", "data",
             {"keccak256": "keccak256_1kB_proof_digest.json",
-             "recursion_outer": "recursion_outer_proof_digest.json"}[
+             "recursion_outer": "recursion_outer_proof_digest.json",
+             "lookup_heavy": "lookup_heavy_proof_digest.json",
+             "lookup_heavy_general": "lookup_heavy_general_proof_digest.json",
+             }[
                  args.config])
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:

@@ -19,7 +19,7 @@ from boojum_tpu_torch.gadgets import sha256 as sha
 from boojum_tpu_torch.gadgets import sha256_witness as sw
 from boojum_tpu_torch.prover.device_witness import DeviceWitnessProgram
 from tests.test_sha256 import build_sha256_circuit as ref_build
-from tests.test_torch_prover import build_small_circuit
+from tests.torch_small_circuit import build_small_circuit
 
 
 def _ref_columns(prog, overrides=None) -> np.ndarray:

@@ -150,7 +150,7 @@ def test_flattened_gate_terms_equal_reference(gate):
 def test_artifacts_load_across_packages(fixture, tmp_path):
     """`save_artifacts` of either package loads in the other (setup base and
     VK), and the VK JSON inside is the same text."""
-    from tests.test_torch_prover import build_small_circuit
+    from tests.torch_small_circuit import build_small_circuit
     from boojum_tpu_torch.cs.setup import create_base_setup
 
     cs = build_small_circuit("boojum_tpu_torch", np.random.default_rng(11))

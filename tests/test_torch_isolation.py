@@ -54,8 +54,10 @@ def test_entry_points_default_to_the_gpu():
         create_device_setup(None, None, None)
 
 
-# the gadget and recursion modules of the Keccak-256 and recursion slice
+# the gadget and recursion modules of the Keccak-256 and recursion slice,
+# and the lookup-heavy circuit's builder
 SLICE_MODULES = (
+    "boojum_tpu_torch.gadgets.lookup_heavy",
     "boojum_tpu_torch.gadgets.keccak256",
     "boojum_tpu_torch.gadgets.num",
     "boojum_tpu_torch.gadgets.poseidon2_circuit",

@@ -233,9 +233,11 @@ def test_kernel_order_matches_plain_stage(log_r, inverse, twmode):
 
 def test_fourstep_reuses_device_twiddle_table():
     """The four-step's cross-twiddle tables are made and uploaded once per
-    (shape, direction, device); the output still equals the reference."""
+    (shape, direction, device); the output still equals the reference.
+    Two columns, the shape of test_fourstep_2_14_matches_reference, whose
+    JAX reference is then traced once (about 9 s a new shape)."""
     ntt.fourstep_twiddles_device.cache_clear()
-    x = _rand(61, (1 << 14, 1))
+    x = _rand(61, (1 << 14, 2))
     outs = [ntt.ntt_fourstep_cols(gl.from_u64(x)) for _ in range(2)]
     info = ntt.fourstep_twiddles_device.cache_info()
     assert (info.misses, info.hits) == (1, 1)

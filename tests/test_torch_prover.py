@@ -6,21 +6,16 @@ the port's proofs (and the port's verifier the reference's), for the
 algebraic transcripts with Poseidon2 trees, the Blake2s and Keccak-256
 configurations, and with proof of work."""
 
-import importlib
-from types import SimpleNamespace
+import copy
 
 import numpy as np
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from boojum_tpu.cs.setup import create_base_setup as ref_create_base_setup
-from boojum_tpu.prover import ProofConfig as RefProofConfig
-from boojum_tpu.prover import create_setup_and_vk, prove
 from boojum_tpu.prover.proof import proof_to_json as ref_proof_to_json
 from boojum_tpu.prover.serialization import save_setup_base, vk_to_json
 from boojum_tpu.verifier import verify
-from boojum_tpu_torch.cs import LookupParameters
 from boojum_tpu_torch.cs.setup import create_base_setup
 from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                      create_device_setup)
@@ -30,8 +25,10 @@ from boojum_tpu_torch.prover.proof import proof_to_json
 from boojum_tpu_torch.prover.serialization import (load_setup_base,
                                                    setup_base_from_arrays)
 from boojum_tpu_torch.verifier import verify as port_verify
+from tests.torch_small_circuit import (build_small_circuit, port_proof,
+                                      port_prover, reference_proof, setups,
+                                      small_circuits)
 
-P = 0xFFFFFFFF00000001
 CFG = dict(fri_lde_factor=8, merkle_tree_cap_size=4, security_level=100,
            pow_bits=0)
 SB_ARRAYS = ("copy_permutation_polys", "constant_columns",
@@ -40,73 +37,22 @@ SB_FIELDS = ("table_ids_column_idxes", "selector_paths", "quotient_degree",
              "num_general_constant_columns", "domain_size", "public_inputs")
 
 
-def build_small_circuit(pkg: str, rng, n_fma=30):
-    """tests/test_prove_verify.py:build_small_circuit(with_lookup=True),
-    written against either package's circuit modules."""
-    csm = importlib.import_module(pkg + ".cs")
-    g = importlib.import_module(pkg + ".cs.gates")
-    geom = csm.CSGeometry(num_columns_under_copy_permutation=16,
-                          num_witness_columns=0, num_constant_columns=4,
-                          max_allowed_constraint_degree=4)
-    cs = csm.ConstraintSystem(geom, 1 << 10, csm.CSConfig.dev())
-    cs.allow_lookup(csm.LookupParameters.specialized_with_table_id_as_constant(
-        width=3, num_repetitions=2, share_table_id=True))
-    cs.allow_gate(g.ConstantsAllocatorGate)
-    cs.allow_gate(g.FmaGate)
-    cs.allow_gate(g.ReductionGate, params=4)
-    cs.allow_gate(g.BooleanConstraintGate)
-    cs.allow_gate(g.SelectionGate)
-    cs.allow_gate(g.PublicInputGate)
-    cs.allow_gate(g.NopGate)
-    rows = [(a, b, a ^ b) for a in range(8) for b in range(8)]
-    tid = cs.add_lookup_table(csm.LookupTable("xor3", np.asarray(rows, np.uint64),
-                                              num_keys=2))
-    a = cs.alloc_variables_with_values(rng.integers(0, P, n_fma, dtype=np.uint64))
-    b = cs.alloc_variables_with_values(rng.integers(0, P, n_fma, dtype=np.uint64))
-    c = cs.alloc_variables_with_values(rng.integers(0, P, n_fma, dtype=np.uint64))
-    d = g.FmaGate.compute_fma_batch(cs, 3, (a, b), 5, c)
-    e = g.ReductionGate.reduce_terms_batch(
-        cs, [1, 2, 3, 4], np.stack([a[:8], b[:8], c[:8], d[:8]]))
-    g.ConstantsAllocatorGate.allocate_constant(cs, 1234)
-    bits = g.BooleanConstraintGate.allocate_batch(cs, [1, 0, 1, 1])
-    g.SelectionGate.select_batch(cs, a[:4], b[:4], bits)
-    la = cs.alloc_variables_with_values([1, 2, 3, 7, 5])
-    lb = cs.alloc_variables_with_values([6, 2, 1, 7, 0])
-    lo = cs.alloc_variables_with_values([1 ^ 6, 0, 3 ^ 1, 0, 5])
-    cs.enforce_lookup_batch(tid, np.stack([la, lb, lo]))
-    g.PublicInputGate.place(cs, int(d[0]))
-    g.PublicInputGate.place(cs, int(e[0]))
-    cs.pad_and_shrink()
-    return cs
-
-
 @pytest.fixture(scope="module")
 def both():
-    """Both packages' circuits, setups and artifacts; reference host proofs
-    for both transcripts, each made once at its first use."""
-    ref_cs = build_small_circuit("boojum_tpu", np.random.default_rng(11))
-    cs = build_small_circuit("boojum_tpu_torch", np.random.default_rng(11))
-    ref_sb = ref_create_base_setup(ref_cs)
-    sb = create_base_setup(cs)
-    ref_art = create_setup_and_vk(ref_cs, ref_sb, RefProofConfig(**CFG),
-                                  "poseidon2")
-    art = create_device_setup(cs, sb, ProofConfig(**CFG), "poseidon2",
-                              device="cpu")
-    ref_proofs = _LazyProofs(lambda kind: prove(
-        ref_cs, ref_art, RefProofConfig(**CFG), kind, "poseidon2"))
-    return dict(ref_cs=ref_cs, cs=cs, ref_sb=ref_sb, sb=sb, ref_art=ref_art,
-                art=art, ref_proofs=ref_proofs)
+    """Both packages' circuits, setups and artifacts (Poseidon2 trees);
+    reference host proofs for both transcripts, each made once at its first
+    use."""
+    ref_art, art = setups(CFG, "poseidon2")
+    return dict(small_circuits(), ref_art=ref_art, art=art,
+                ref_proofs=_LazyProofs())
 
 
 class _LazyProofs(dict):
-    """kind -> the reference host proof, made at its first use."""
-
-    def __init__(self, make):
-        super().__init__()
-        self._make = make
+    """kind -> the reference host proof with Poseidon2 trees, made at its
+    first use."""
 
     def __missing__(self, kind):
-        self[kind] = self._make(kind)
+        self[kind] = reference_proof(CFG, kind, "poseidon2")
         return self[kind]
 
 
@@ -124,9 +70,7 @@ def test_setup_arrays_and_vk_match_reference(both):
 def warm_prover(both):
     """A CPU prover after its first prove (Poseidon transcript, host
     transcript), which filled its device caches; the proof rides along."""
-    prover = DeviceProver(both["cs"], both["art"], ProofConfig(**CFG),
-                          device="cpu")
-    return prover, prover.prove("poseidon", "poseidon2")
+    return port_prover(CFG, "poseidon", "poseidon2")
 
 
 @pytest.mark.parametrize("kind", ["poseidon", "poseidon2"])
@@ -136,8 +80,7 @@ def test_proof_is_byte_identical_and_verifies(both, warm_prover, kind):
     if kind == "poseidon":
         proof = warm_prover[1]
     else:
-        proof = DeviceProver(both["cs"], both["art"], ProofConfig(**CFG),
-                             device="cpu").prove(kind, "poseidon2")
+        proof = port_proof(CFG, kind, "poseidon2")
     assert proof_to_json(proof) == ref_proof_to_json(both["ref_proofs"][kind])
     assert verify(both["ref_art"].vk, proof, kind, "poseidon2")
 
@@ -271,28 +214,20 @@ def test_setup_base_loads_from_reference_npz(both, tmp_path):
             assert getattr(sb, name) == getattr(ref_sb, name), name
 
 
-def _configured_proofs(both, cfg, transcript, hasher):
+def _configured_proofs(cfg, transcript, hasher):
     """The reference host proof and the port's CPU proof under ``cfg``, each
     from its own setup of the shared circuit."""
-    ref_art = create_setup_and_vk(both["ref_cs"], both["ref_sb"],
-                                  RefProofConfig(**cfg), hasher)
-    art = create_device_setup(both["cs"], both["sb"], ProofConfig(**cfg),
-                              hasher, device="cpu")
+    ref_art, art = setups(cfg, hasher)
     assert vk_to_json(art.vk) == vk_to_json(ref_art.vk)
-    ref_proof = prove(both["ref_cs"], ref_art, RefProofConfig(**cfg),
-                      transcript, hasher)
-    fetches = device_merkle.FETCHES
-    proof = DeviceProver(both["cs"], art, ProofConfig(**cfg),
-                         device="cpu").prove(transcript, hasher)
-    assert device_merkle.FETCHES - fetches == 1  # the query phase's one
-    return ref_art, art, ref_proof, proof
+    return (ref_art, art, reference_proof(cfg, transcript, hasher),
+            port_proof(cfg, transcript, hasher))
 
 
 @pytest.mark.parametrize("kind", ["blake2s", "keccak256"])
 def test_byte_hash_proof_is_byte_identical_and_verifies(both, kind):
     """The non-recursive configurations: the byte transcript (on the host)
     and byte trees (kernels K8 / K9, here their plain versions)."""
-    ref_art, art, ref_proof, proof = _configured_proofs(both, CFG, kind, kind)
+    ref_art, art, ref_proof, proof = _configured_proofs(CFG, kind, kind)
     assert proof_to_json(proof) == ref_proof_to_json(ref_proof)
     assert verify(ref_art.vk, proof, kind, kind)
     assert port_verify(art.vk, ref_proof, kind, kind)
@@ -315,19 +250,19 @@ def test_pow_proof_is_byte_identical_and_verifies(both, pow_hash, kind,
                         ref_pow._grind_range((kind, seed, threshold, 0,
                                               1 << 40)))
     cfg = dict(CFG, pow_bits=8, pow_hash=pow_hash)
-    ref_art, art, ref_proof, proof = _configured_proofs(both, cfg, kind,
-                                                        hasher)
+    ref_art, art, ref_proof, proof = _configured_proofs(cfg, kind, hasher)
     assert proof_to_json(proof) == ref_proof_to_json(ref_proof)
     assert verify(ref_art.vk, proof, kind, hasher)
     assert port_verify(art.vk, proof, kind, hasher)
-    proof.pow_challenge += 1
-    assert not port_verify(art.vk, proof, kind, hasher)
+    bad = copy.deepcopy(proof)  # the shared proof stays as it was made
+    bad.pow_challenge += 1
+    assert not port_verify(art.vk, bad, kind, hasher)
 
 
 def test_unported_options_raise(both):
     """What is still not ported raises: the classic-Poseidon tree hasher,
-    general-purpose lookups, and the device transcript with a byte
-    transcript or byte trees."""
+    and the device transcript with a byte transcript or byte trees
+    (general-purpose lookups are ported: tests/test_torch_lookup_modes.py)."""
     prover = DeviceProver(both["cs"], both["art"], ProofConfig(**CFG),
                           device="cpu")
     with pytest.raises(NotImplementedError):
@@ -339,8 +274,3 @@ def test_unported_options_raise(both):
         prover.prove("blake2s", "blake2s", device_transcript=True)
     with pytest.raises(ValueError, match="device transcript"):
         prover.prove("poseidon", "blake2s", device_transcript=True)
-    general = SimpleNamespace(
-        lookup_parameters=LookupParameters.table_id_as_constant(width=3))
-    with pytest.raises(NotImplementedError, match="general-purpose"):
-        create_device_setup(general, both["sb"], ProofConfig(**CFG),
-                            device="cpu")

@@ -11,13 +11,10 @@ raising). The port's verifier is host code: it dispatches no torch op."""
 
 import copy
 
-import numpy as np
 import pytest
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from boojum_tpu.cs.setup import create_base_setup as ref_create_base_setup
 from boojum_tpu.prover import ProofConfig as RefProofConfig
-from boojum_tpu.prover import create_setup_and_vk, prove
 from boojum_tpu.verifier import verify as ref_verify
 from boojum_tpu_torch.cs.setup import create_base_setup
 from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
@@ -25,7 +22,8 @@ from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
 from boojum_tpu_torch.prover import serialization as ser
 from boojum_tpu_torch.verifier import verifier
 from boojum_tpu_torch.verifier import verify
-from tests.test_torch_prover import build_small_circuit
+from tests.torch_small_circuit import (port_proof, reference_proof, setups,
+                                      small_circuits)
 
 P = 0xFFFFFFFF00000001
 CFG = dict(fri_lde_factor=8, merkle_tree_cap_size=4, security_level=100,
@@ -36,52 +34,26 @@ KINDS = {"poseidon": "poseidon2", "poseidon2": "poseidon2",
 
 @pytest.fixture(scope="module")
 def circuits():
-    return dict(
-        ref_cs=build_small_circuit("boojum_tpu", np.random.default_rng(11)),
-        cs=build_small_circuit("boojum_tpu_torch", np.random.default_rng(11)))
+    return small_circuits()
 
 
 class _Proofs:
     """Per transcript kind, built at its first use: (reference VK, port VK,
-    reference proof, port proof); each hasher's setups made once."""
-
-    def __init__(self, circuits):
-        self.ref_cs, self.cs = circuits["ref_cs"], circuits["cs"]
-        self._sb = None
-        self._arts = {}
-        self._kinds = {}
-
-    def _setups(self, hasher):
-        if self._sb is None:
-            self._sb = (ref_create_base_setup(self.ref_cs),
-                        create_base_setup(self.cs))
-        if hasher not in self._arts:
-            ref_sb, sb = self._sb
-            self._arts[hasher] = (
-                create_setup_and_vk(self.ref_cs, ref_sb, RefProofConfig(**CFG),
-                                    hasher),
-                create_device_setup(self.cs, sb, ProofConfig(**CFG), hasher,
-                                    device="cpu"))
-        return self._arts[hasher]
+    reference proof, port proof); the setups and proofs are those of
+    tests/test_torch_prover.py, made once a process."""
 
     def __getitem__(self, kind):
-        if kind not in self._kinds:
-            hasher = KINDS[kind]
-            ref_art, art = self._setups(hasher)
-            self._kinds[kind] = (
-                ref_art.vk, art.vk,
-                prove(self.ref_cs, ref_art, RefProofConfig(**CFG), kind,
-                      hasher),
-                DeviceProver(self.cs, art, ProofConfig(**CFG),
-                             device="cpu").prove(kind, hasher))
-        return self._kinds[kind]
+        hasher = KINDS[kind]
+        ref_art, art = setups(CFG, hasher)
+        return (ref_art.vk, art.vk, reference_proof(CFG, kind, hasher),
+                port_proof(CFG, kind, hasher))
 
 
 @pytest.fixture(scope="module")
 def proofs(circuits):
     """Per transcript kind: (reference VK, port VK, reference proof, port
     proof), each kind built lazily at its first use."""
-    return _Proofs(circuits)
+    return _Proofs()
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
