@@ -938,25 +938,27 @@ class ConstraintSystem:
                     ids = self.specialized_constants[0, :n_lookup_rows]
                 else:
                     ids = self.specialized_constants[rep, :n_lookup_rows]
-                for r in np.nonzero(live)[0]:
-                    table = self.get_table(int(ids[r]))
-                    key = np.asarray(
-                        [[block[i, r]] for i in range(table.num_keys)],
-                        np.uint64)
+                # the live rows of each table at once (the reference loops
+                # over the rows one by one; the verdict is the same)
+                rows = np.nonzero(live)[0]
+                for tid in np.unique(ids[rows]):
+                    table = self.get_table(int(tid))
+                    at = rows[ids[rows] == tid]
                     try:
-                        row_idx = int(table.lookup_rows(key)[0])
-                    except KeyError:
+                        row_idx = table.lookup_rows(
+                            block[:table.num_keys, at])
+                    except KeyError as err:
                         ok = False
                         if verbose:
-                            print(f"lookup miss at rep {rep} row {r}")
+                            print(f"lookup miss at rep {rep}: {err}")
                         continue
-                    want = table.content[row_idx]
-                    got = tuple(int(block[i, r])
-                                for i in range(table.width))
-                    if got != tuple(int(x) for x in want):
+                    bad = np.any(table.content[row_idx].T
+                                 != block[:table.width, at], axis=0)
+                    if bad.any():
                         ok = False
                         if verbose:
-                            print(f"lookup value mismatch rep {rep} row {r}")
+                            print(f"lookup value mismatch rep {rep} rows "
+                                  f"{at[bad][:5]}")
         return ok
 
 

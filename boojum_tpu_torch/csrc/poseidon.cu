@@ -1,11 +1,15 @@
 // Poseidon (Goldilocks, width 12, the classic permutation of the Poseidon
-// transcript) on ONE sponge state: the device transcript's absorb and
-// squeeze. Two entry points:
+// transcript and of the "poseidon" Merkle trees). Two entry points on ONE
+// sponge state, the device transcript's absorb and squeeze:
 //   poseidon_absorb   state (12,), elements (k,) -> state (12,): append the
 //                     1-then-zeros pad to a multiple of RATE = 8 (k + 1
 //                     counted), then per rate block overwrite state[0..8)
 //                     and permute; all blocks in one launch
 //   poseidon_permute  state (12,) -> permuted state (12,)
+// and two on m independent sponges, the Merkle tree's hashes (at the end of
+// this file, with their own notes):
+//   poseidon_leaf_hashes  (k, m) leaf columns -> (4, m) leaf hashes
+//   poseidon_node_layer   (4, m) node layer -> (4, m/2) parent layer
 //
 // Replaces the permutation inside boojum_tpu/prover/device_transcript.py
 // _flush_jit (:87, its pad and block scan too), _perm_jit (:123) and
@@ -193,6 +197,130 @@ permute_kernel(const uint64_t* __restrict__ st_in,
       permute_lanes(st_in[lane], lane, src, pow0, rc));
 }
 
+// ---------------------------------------------------------------------------
+// The Merkle tree of the "poseidon" tree hasher: m independent sponges.
+//
+// Replaces no TPU kernel: the reference builds this tree with the batched
+// jnp sponge of boojum_tpu/hash/sponge.py (hash_leaves :116, hash_nodes
+// :147) behind its host AlgebraicMerkleTree (boojum_tpu/hash/merkle.py:39,
+// reached from boojum_tpu/prover/device_merkle.py:332).
+// - Leaf: from the all-zero state, each rate block of the column overwrites
+//   state[0..8) and is permuted; a partial last block zero-fills the rest of
+//   the rate (no 1-then-zeros pad, unlike poseidon_absorb); out state[0..4).
+// - Node: the state left ‖ right ‖ 0, one permutation; out state[0..4).
+//
+// Bound: operations. A permutation reads and writes at most 192 bytes
+// against its 472 s-box field multiplies; the classic MDS adds, in every
+// one of the 30 rounds, a full 12 x 12 product by powers of two (Poseidon2's
+// matrices are addition chains), 288 multiply-adds of 32-bit halves.
+//
+// Design (as K2's tree entries in poseidon2.cu): one thread a state, its 12
+// elements in registers, lazy arithmetic (goldilocks.cuh) between rounds
+// and blocks, one canonicalization a stored element.
+// - The MDS: output r is sum_c s[c] * 2^EXPS[(12 - r + c) % 12], every
+//   shift a compile-time constant (the loops are unrolled). Each term is
+//   split into its 32-bit halves and each half sum (< 12 * 2^48) collects in
+//   64 bits, one multiply-add a half-term; one reduce96 an output takes
+//   lo + hi * 2^32 (< 2^85), as poseidon_absorb's lanes do.
+// - The round constants come from the table the wrapper uploads (the same
+//   one as the transcript's entries): every thread of a warp reads the same
+//   address, one broadcast load a constant.
+// - The round loops stay rolled, each round's body unrolled, as in K2.
+// - Leaves take k rows at a row stride ld >= m, so a strided view of the
+//   oracle's LDE needs no copy; rows past k read as zero. Nodes read each
+//   sibling pair as one 16-byte load a state row.
+// One launch a layer: a 2^19-leaf tree to a cap of 16 is 15 launches.
+// ---------------------------------------------------------------------------
+
+constexpr int CAP = 4;
+constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 4;  // 4 x 128 threads per SM: up to 128 registers
+
+// The circulant on one thread's state, lazy in and out.
+__device__ __forceinline__ void mds_regs(uint64_t* s) {
+  uint64_t out[WIDTH];
+#pragma unroll
+  for (int r = 0; r < WIDTH; ++r) {
+    uint64_t lo = 0, hi = 0;
+#pragma unroll
+    for (int c = 0; c < WIDTH; ++c) {
+      const int e = mds_exp((WIDTH - r + c) % WIDTH);
+      lo += (uint64_t)(uint32_t)s[c] << e;
+      hi += (s[c] >> 32) << e;
+    }
+    out[r] = mds_reduce(lo, hi);
+  }
+#pragma unroll
+  for (int r = 0; r < WIDTH; ++r) s[r] = out[r];
+}
+
+// Round constants of round r added to every element, then the s-box on the
+// first ``boxes`` elements (12 in a full round, 1 in a partial one).
+template <int BOXES>
+__device__ __forceinline__ void round_regs(uint64_t* s,
+                                           const uint64_t* __restrict__ rc) {
+#pragma unroll
+  for (int i = 0; i < WIDTH; ++i) {
+    const uint64_t t = gl::add_canon_lazy(s[i], __ldg(rc + i));
+    s[i] = i < BOXES ? sbox7(t) : t;
+  }
+  mds_regs(s);
+}
+
+// One permutation on a thread's registers, lazy in and out.
+__device__ __forceinline__ void permute_regs(uint64_t* s,
+                                             const uint64_t* __restrict__ rc) {
+#pragma unroll 1
+  for (int r = 0; r < HALF_FULL; ++r) round_regs<WIDTH>(s, rc + r * WIDTH);
+#pragma unroll 1
+  for (int r = HALF_FULL; r < HALF_FULL + PARTIAL; ++r)
+    round_regs<1>(s, rc + r * WIDTH);
+#pragma unroll 1
+  for (int r = HALF_FULL + PARTIAL; r < ROUNDS; ++r)
+    round_regs<WIDTH>(s, rc + r * WIDTH);
+}
+
+// cols: k rows of m leaf elements, row r at cols + r * ld; out: (4, m).
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+leaf_kernel(const uint64_t* __restrict__ cols, uint64_t* __restrict__ out,
+            int k, long long m, long long ld,
+            const uint64_t* __restrict__ rc) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (t >= m) return;
+  uint64_t s[WIDTH] = {};
+  for (int r0 = 0; r0 < k; r0 += RATE) {
+    const uint64_t* src = cols + (long long)r0 * ld + t;
+#pragma unroll
+    for (int i = 0; i < RATE; ++i) s[i] = r0 + i < k ? src[i * ld] : 0;
+    permute_regs(s, rc);
+  }
+#pragma unroll
+  for (int i = 0; i < CAP; ++i) out[i * m + t] = gl::canonicalize(s[i]);
+}
+
+// cur: (4, 2 * half) nodes, 16-byte aligned; out: (4, half) parents.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+node_kernel(const uint64_t* __restrict__ cur, uint64_t* __restrict__ out,
+            long long half, const uint64_t* __restrict__ rc) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (t >= half) return;
+  uint64_t s[WIDTH];
+#pragma unroll
+  for (int i = 0; i < CAP; ++i) {
+    const ulonglong2 pair =
+        reinterpret_cast<const ulonglong2*>(cur + 2 * half * i)[t];
+    s[i] = pair.x;        // left sibling
+    s[CAP + i] = pair.y;  // right sibling
+  }
+#pragma unroll
+  for (int i = RATE; i < WIDTH; ++i) s[i] = 0;
+  permute_regs(s, rc);
+#pragma unroll
+  for (int i = 0; i < CAP; ++i) out[i * half + t] = gl::canonicalize(s[i]);
+}
+
+unsigned grid_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
+
 }  // namespace
 
 // state, out: (12,); elems: (k,), k >= 0; rc: the ROUNDS x 12 round
@@ -211,5 +339,25 @@ extern "C" int poseidon_permute(const void* state, void* out, const void* rc,
                                 void* stream) {
   permute_kernel<<<1, WIDTH, 0, (cudaStream_t)stream>>>(
       (const uint64_t*)state, (uint64_t*)out, (const uint64_t*)rc);
+  return (int)cudaGetLastError();
+}
+
+// cols: k >= 1 rows of m elements at a row stride of ld >= m; out: (4, m);
+// rc: the round constants, as above.
+extern "C" int poseidon_leaf_hashes(const void* cols, void* out, int k,
+                                    long long m, long long ld, const void* rc,
+                                    void* stream) {
+  if (k < 1 || m <= 0 || ld < m) return (int)cudaErrorInvalidValue;
+  leaf_kernel<<<grid_for(m), THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)cols, (uint64_t*)out, k, m, ld, (const uint64_t*)rc);
+  return (int)cudaGetLastError();
+}
+
+// cur: (4, m), m even, 16-byte aligned; out: (4, m / 2).
+extern "C" int poseidon_node_layer(const void* cur, void* out, long long m,
+                                   const void* rc, void* stream) {
+  if (m <= 0 || m % 2 || (uintptr_t)cur % 16) return (int)cudaErrorInvalidValue;
+  node_kernel<<<grid_for(m / 2), THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)cur, (uint64_t*)out, m / 2, (const uint64_t*)rc);
   return (int)cudaGetLastError();
 }

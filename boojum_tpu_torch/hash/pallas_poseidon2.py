@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from . import poseidon2 as p2
+from . import sponge
 
-RATE = 8
 CAP = 4
 
 # launches of each CUDA entry, and calls of a plain version on a CUDA tensor
@@ -55,33 +55,18 @@ def permutation_plain(st: torch.Tensor) -> torch.Tensor:
     return p2._permutation_stacked(st)
 
 
-def _pad_cols_to_rate(cols: torch.Tensor) -> torch.Tensor:
-    k, m = cols.shape
-    pad = (-k) % RATE
-    if pad:
-        return torch.cat([cols, cols.new_zeros((pad, m))])
-    return cols
-
-
 def leaf_hashes_plain(cols: torch.Tensor) -> torch.Tensor:
-    """The plain torch version of ``poseidon2_leaf_hashes``: pad k to the
-    rate, then one stacked permutation per rate-8 block in overwrite mode."""
+    """The plain torch version of ``poseidon2_leaf_hashes``: one stacked
+    permutation per rate-8 block in overwrite mode, the last block padded
+    with zeros."""
     _count_plain(cols)
-    cols = _pad_cols_to_rate(cols)
-    k, m = cols.shape
-    st = cols.new_zeros((12, m))
-    for b in range(k // RATE):
-        st = p2._permutation_stacked(
-            torch.cat([cols[b * RATE:(b + 1) * RATE], st[RATE:]]))
-    return st[:CAP]
+    return sponge.hash_leaves(cols, "poseidon2")
 
 
 def node_layer_plain(cur: torch.Tensor) -> torch.Tensor:
     """The plain torch version of ``poseidon2_node_layer``."""
     _count_plain(cur)
-    m = cur.shape[1]
-    st = torch.cat([cur[:, 0::2], cur[:, 1::2], cur.new_zeros((4, m // 2))])
-    return p2._permutation_stacked(st)[:CAP]
+    return sponge.hash_nodes(cur[:, 0::2], cur[:, 1::2], "poseidon2")
 
 
 def _lib(device):

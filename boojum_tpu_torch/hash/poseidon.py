@@ -1,11 +1,12 @@
 # Port of boojum_tpu/hash/poseidon.py: the tensor and scalar permutations,
-# and the wrapper of the transcript-sponge kernel K6.
+# the wrapper of the transcript-sponge kernel K6, and the wrappers of the
+# Merkle tree's leaf and node kernels.
 """Classic Poseidon permutation over Goldilocks, width 12 (Plonky2-compatible).
 
 Reference behavior: src/implementations/poseidon_goldilocks_naive.rs (full and
 partial rounds at :123-147, MDS circulant of powers of two, constants shared
 with Poseidon2). Used by the ``GoldilocksPoisedonTranscript`` (reference
-transcript.rs:131-139); the port's Merkle trees hash with Poseidon2.
+transcript.rs:131-139) and by the classic-Poseidon Merkle trees.
 
 - `permutation_stacked`: B states stacked as a (12, B) int64 tensor, in plain
   torch (the counterpart of `permutation_gl` / `_permutation_rolled_gl`);
@@ -15,6 +16,14 @@ transcript.rs:131-139); the port's Merkle trees hash with Poseidon2.
   permutation inside `boojum_tpu/prover/device_transcript.py` `_flush_jit`,
   `_perm_jit` and `_ext_extract_cross_jit`), their plain versions
   `sponge_absorb_plain` / `sponge_permute_plain` on a CPU tensor;
+- `leaf_hashes` / `node_layer`: the Merkle tree of the ``"poseidon"`` tree
+  hasher, (k, m) leaf columns -> (4, m) leaf hashes and (4, m) -> (4, m/2)
+  parents, one launch each of the entries ``poseidon_leaf_hashes`` /
+  ``poseidon_node_layer`` of ``csrc/poseidon.cu`` on a CUDA tensor (they
+  replace the batched jnp sponge of `boojum_tpu/hash/sponge.py`
+  `hash_leaves` / `hash_nodes` behind the reference's host
+  `AlgebraicMerkleTree`), their plain versions `leaf_hashes_plain` /
+  `node_layer_plain` (`sponge.hash_leaves` / `hash_nodes`) on a CPU tensor;
 - `s_permutation`: the exact Python-int twin of the host transcript.
 """
 
@@ -28,6 +37,7 @@ import torch
 from ..field import goldilocks as gl
 from ..field.goldilocks import ORDER
 from . import _poseidon_constants as C
+from . import sponge
 from .poseidon2 import _s_sbox7, _sbox7  # same x^7 S-box
 
 STATE_WIDTH = C.STATE_WIDTH
@@ -42,11 +52,15 @@ _EXPS = C.MDS_MATRIX_EXPS
 # MDS[row][col] = 2^EXPS[(12 - row + col) % 12]
 _MDS_POW = [[1 << _EXPS[(12 - r + c) % 12] for c in range(12)] for r in range(12)]
 
-# launches of the sponge kernel's two entries, and calls of a plain version on
-# a CUDA tensor (chip_smoke.py reads them around the flagship prove)
+# launches of the sponge kernel's two entries, of the tree's leaf and node
+# entries, and calls of a plain version on a CUDA tensor (chip_smoke.py reads
+# them around each path)
 LAUNCHES = 0
+LEAF_LAUNCHES = 0
+NODE_LAUNCHES = 0
 PLAIN_CUDA_CALLS = 0
-# launches by shape: ("absorb", rate blocks) or ("permute",)
+# launches by shape: ("absorb", rate blocks), ("permute",), ("leaf", k, m)
+# or ("node", m)
 SHAPES = collections.Counter()
 
 
@@ -210,6 +224,88 @@ def sponge_permute(state: torch.Tensor) -> torch.Tensor:
     cuda_build.check(rc, "poseidon_permute")
     LAUNCHES += 1
     SHAPES[("permute",)] += 1
+    return out
+
+
+# ----------------------------------------------------------------------------
+# The Merkle tree's leaf and node hashes on m independent sponges
+# ----------------------------------------------------------------------------
+
+
+def leaf_hashes_plain(cols: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of ``poseidon_leaf_hashes``."""
+    _count_plain(cols)
+    return sponge.hash_leaves(cols, "poseidon")
+
+
+def node_layer_plain(cur: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of ``poseidon_node_layer``."""
+    _count_plain(cur)
+    return sponge.hash_nodes(cur[:, 0::2], cur[:, 1::2], "poseidon")
+
+
+def _check_tree(t: torch.Tensor, what: str, rows=None):
+    if t.dtype != torch.int64 or t.dim() != 2 or \
+            (rows is not None and t.shape[0] != rows):
+        raise TypeError("the Poseidon tree wants %s as a 2-D int64 tensor%s, "
+                        "got %s %s" % (what, "" if rows is None
+                                       else " of %d rows" % rows, t.dtype,
+                                       tuple(t.shape)))
+    if t.device.type not in ("cpu", "cuda"):
+        raise RuntimeError("the Poseidon tree has no kernel for device %s"
+                           % t.device)
+
+
+def leaf_hashes(cols: torch.Tensor) -> torch.Tensor:
+    """Leaf hashes (4, m) of canonical leaf columns (k, m), k >= 1: leaf i
+    is column i, absorbed in overwrite mode from the zero state, the last
+    rate block zero-filled."""
+    global LEAF_LAUNCHES
+    _check_tree(cols, "the leaf columns")
+    if cols.device.type == "cpu":
+        return leaf_hashes_plain(cols)
+    from ..utils import cuda_build
+
+    k, m = cols.shape
+    if k < 1 or m < 1:
+        raise ValueError("no leaves to hash: (%d, %d)" % (k, m))
+    if cols.stride(1) != 1 or (k > 1 and cols.stride(0) < m):
+        cols = cols.contiguous()
+    ld = cols.stride(0) if k > 1 else m
+    lib = cuda_build.load("poseidon")
+    out = cols.new_empty((CAPACITY, m))
+    rc = lib.poseidon_leaf_hashes(cols.data_ptr(), out.data_ptr(), k, m, ld,
+                                  _table(cols.device).data_ptr(),
+                                  cuda_build.stream_handle(cols))
+    cuda_build.check(rc, "poseidon_leaf_hashes")
+    LEAF_LAUNCHES += 1
+    SHAPES[("leaf", k, m)] += 1
+    return out
+
+
+def node_layer(cur: torch.Tensor) -> torch.Tensor:
+    """(4, m) canonical nodes, m even -> (4, m/2) parents: the hash of each
+    (left, right) sibling pair."""
+    global NODE_LAUNCHES
+    _check_tree(cur, "the node layer", CAPACITY)
+    m = cur.shape[1]
+    if m % 2 or m == 0:
+        raise ValueError("a node layer needs an even width, got %d" % m)
+    if cur.device.type == "cpu":
+        return node_layer_plain(cur)
+    from ..utils import cuda_build
+
+    cur = cur.contiguous()
+    if cur.data_ptr() % 16:  # the kernel reads each pair with one 16-byte load
+        cur = cur.clone()
+    lib = cuda_build.load("poseidon")
+    out = cur.new_empty((CAPACITY, m // 2))
+    rc = lib.poseidon_node_layer(cur.data_ptr(), out.data_ptr(), m,
+                                 _table(cur.device).data_ptr(),
+                                 cuda_build.stream_handle(cur))
+    cuda_build.check(rc, "poseidon_node_layer")
+    NODE_LAUNCHES += 1
+    SHAPES[("node", m)] += 1
     return out
 
 

@@ -1,19 +1,24 @@
-# Copied from boojum_tpu/hash/sponge.py (the scalar sponge only).
-"""Algebraic sponges over Goldilocks: scalar twin + batched TPU leaf hashing.
+# Copied from boojum_tpu/hash/sponge.py (the scalar sponge; the batched
+# hash_leaves / hash_nodes on stacked torch states).
+"""Algebraic sponges over Goldilocks: scalar twin + batched leaf hashing.
 
 Reference behavior: src/algebraic_props/sponge.rs (GenericAlgebraicSponge,
 absorb/finalize at :224-345) and src/algebraic_props/round_function.rs
 (AbsorptionMode absorb/pad). Width 12, rate 8, capacity 4; commitment =
 state[..N] (reference poseidon_goldilocks.rs:474-483).
 
-Only the scalar sponge is carried; batched leaf and node hashing lives in
-`prover/device_merkle.py`.
+The batched `hash_leaves` / `hash_nodes` (overwrite mode) are the plain
+torch versions of the Merkle trees' leaf and node kernels
+(`pallas_poseidon2.leaf_hashes` / `node_layer` for Poseidon2,
+`poseidon.leaf_hashes` / `node_layer` for the classic Poseidon).
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..field import goldilocks as gl
-from . import poseidon2
+from . import poseidon, poseidon2
 
 RATE = 8
 CAPACITY = 4
@@ -99,3 +104,40 @@ def scalar_hash_into_node(left, right, permutation=poseidon2.s_permutation, mode
     sp = ScalarSponge(permutation, mode)
     sp.absorb(list(left) + list(right))
     return sp.finalize(CAPACITY)
+
+
+# ----------------------------------------------------------------------------
+# Batched leaf / node hashing (torch) on stacked (12, N) states
+# ----------------------------------------------------------------------------
+
+
+def _stacked_perm(name):
+    return poseidon2._permutation_stacked if name == "poseidon2" \
+        else poseidon.permutation_stacked
+
+
+def hash_leaves(columns: torch.Tensor, permutation: str = "poseidon2"
+                ) -> torch.Tensor:
+    """Hash N leaves of k canonical elements each: ``columns`` (k, N), leaf
+    i is columns[:, i] -> (CAPACITY, N). From the zero state, each rate
+    block overwrites state[0..8) and is permuted; a partial last block
+    zero-fills the rest of the rate (no 1-then-zeros pad)."""
+    perm = _stacked_perm(permutation)
+    k, n = columns.shape
+    st = columns.new_zeros((STATE_WIDTH, n))
+    for r0 in range(0, k, RATE):
+        block = columns[r0:r0 + RATE]
+        if block.shape[0] < RATE:
+            block = torch.cat([block, block.new_zeros((RATE - block.shape[0],
+                                                       n))])
+        st = perm(torch.cat([block, st[RATE:]]))
+    return st[:CAPACITY]
+
+
+def hash_nodes(left: torch.Tensor, right: torch.Tensor,
+               permutation: str = "poseidon2") -> torch.Tensor:
+    """Hash N (left, right) node pairs, each (CAPACITY, N): the state
+    left ‖ right ‖ 0, one permutation -> (CAPACITY, N)."""
+    perm = _stacked_perm(permutation)
+    st = torch.cat([left, right, left.new_zeros((CAPACITY, left.shape[1]))])
+    return perm(st)[:CAPACITY]

@@ -1,4 +1,4 @@
-# Port of boojum_tpu/prover/device_merkle.py to torch (Poseidon2, Blake2s and Keccak-256 trees).
+# Port of boojum_tpu/prover/device_merkle.py to torch (Poseidon2, Poseidon, Blake2s and Keccak-256 trees).
 """Merkle-cap trees and FRI on the device.
 
 Reference behavior: oracle construction (src/cs/oracle/merkle_tree.rs:78-176)
@@ -6,8 +6,11 @@ and FRI folding (src/cs/implementations/fri/mod.rs:49,362). The leaf hashes
 of a Poseidon2 tree are one `pallas_poseidon2.leaf_hashes` call and each
 node layer one `pallas_poseidon2.node_layer` call (on the GPU one launch
 each of the Hopper `poseidon2_leaf_hashes` and `poseidon2_node_layer`
-kernels); a Blake2s or Keccak-256 tree (src/cs/oracle/mod.rs:179, :247)
-takes one `device_bytes_hash.leaf_hashes` call and one `node_layers` call
+kernels); a classic-Poseidon tree's are `poseidon.leaf_hashes` and
+`poseidon.node_layer` (kernels `poseidon_leaf_hashes` and
+`poseidon_node_layer`; the reference builds it on the host,
+boojum_tpu/prover/device_merkle.py:332); a Blake2s or Keccak-256 tree
+(src/cs/oracle/mod.rs:179, :247) takes one `device_bytes_hash.leaf_hashes` call and one `node_layers` call
 (kernels K8 and K9: one launch for its node layers, two for a tree above
 2^17 leaves). The layers stay on the device, and only caps and queried
 paths cross to the host: the query phase's gathers all ride one
@@ -23,7 +26,7 @@ from ..field import extension as ext2
 from ..field import goldilocks as gl
 from ..field.goldilocks import MULTIPLICATIVE_GENERATOR, ORDER
 from ..hash import device_bytes_hash as dbh
-from ..hash.pallas_poseidon2 import leaf_hashes, node_layer
+from ..hash import pallas_poseidon2, poseidon
 from ..utils import npgl
 from .device import upload
 from .fri import FriResult, interpolate_final_host
@@ -89,8 +92,17 @@ def _flush_alone(collector):
         else (FetchCollector(), True)
 
 
-def build_device_tree(cols: torch.Tensor, cap_size: int) -> "DeviceTree":
-    """Poseidon2 Merkle-cap tree of leaf columns (k, m); leaf i is column i."""
+# the leaf and node hashes of the algebraic trees, by tree hasher
+_ALGEBRAIC = {
+    "poseidon2": (pallas_poseidon2.leaf_hashes, pallas_poseidon2.node_layer),
+    "poseidon": (poseidon.leaf_hashes, poseidon.node_layer)}
+
+
+def build_device_tree(cols: torch.Tensor, cap_size: int,
+                      hasher: str = "poseidon2") -> "DeviceTree":
+    """Poseidon2 or Poseidon Merkle-cap tree of leaf columns (k, m); leaf i
+    is column i."""
+    leaf_hashes, node_layer = _ALGEBRAIC[hasher]
     cur = leaf_hashes(cols)
     layers = [cur]
     while cur.shape[1] > cap_size:
@@ -182,19 +194,19 @@ class DeviceBytesTree(DeviceTree):
         return dbh.digests_to_bytes(arr)
 
 
-# tree hashers with a device tree; the reference's host tree for "poseidon"
-# (boojum_tpu/prover/device_merkle.py:332) is not ported
-TREE_HASHERS = ("poseidon2", "blake2s", "keccak256")
+# tree hashers, each with a device tree
+TREE_HASHERS = ("poseidon2", "poseidon", "blake2s", "keccak256")
 
 
 def build_any_device_tree(cols: torch.Tensor, cap_size: int, hasher: str):
     """The Merkle-cap tree of leaf columns (k, m) by tree hasher: Poseidon2
-    (`DeviceTree`), or Blake2s / Keccak-256 (`DeviceBytesTree`)."""
-    if hasher == "poseidon2":
-        return build_device_tree(cols, cap_size)
+    or Poseidon (`DeviceTree`), or Blake2s / Keccak-256
+    (`DeviceBytesTree`)."""
+    if hasher in _ALGEBRAIC:
+        return build_device_tree(cols, cap_size, hasher)
     if hasher in ("blake2s", "keccak256"):
         return build_device_bytes_tree(cols, cap_size, hasher)
-    raise NotImplementedError("the %r tree hasher is not ported" % (hasher,))
+    raise ValueError("unknown tree hasher %r" % (hasher,))
 
 
 class DeviceFlatOracle:

@@ -9,7 +9,8 @@ permutation grand product, lookup A/B polys); the quotient over the flat
 (qd·n) domain; its coset iNTT; evaluations at z, z·ω and 0; DEEP; FRI; and
 the query openings. NTTs run through the `ntt_stage` kernel and every Merkle
 tree through the leaf and node entries of the tree hasher's kernel on the
-GPU: `poseidon2` (K2), `blake2s` (K8) or `keccak256` (K9). With
+GPU: `poseidon2` (K2), `poseidon` (`poseidon_leaf_hashes` /
+`poseidon_node_layer`), `blake2s` (K8) or `keccak256` (K9). With
 ``pow_bits > 0`` the host grinds the proof of work after FRI
 (`prover/pow.py`), as the reference does.
 
@@ -18,16 +19,18 @@ witness program (`device_witness.DeviceWitnessProgram`, its SHA-256
 compression chain on kernel K5) whenever the circuit supports it, and the
 challenges from the device transcript (`device_transcript.DeviceTranscript`,
 its sponge on kernel K6) by default on a CUDA device, under the reference's
-condition (an algebraic transcript and the poseidon2 tree hasher): every
-challenge stays on the device until one handoff to the host transcript
-before the queries. The Blake2s and Keccak-256 transcripts run on the host.
+condition (an algebraic transcript and an algebraic tree hasher: the
+reference's poseidon2, and poseidon, whose trees the port also builds on
+the device): every challenge stays on the device until one handoff to the
+host transcript before the queries. The Blake2s and Keccak-256 transcripts
+run on the host.
 
 Every lookup mode of the reference runs: the specialized modes (A_i =
 1/agg_i on every row) and the general-purpose ones, whose lookups sit on the
 rows of the marker gate (A_i = sel/agg_i, sel the marker's selector-path
 product over the constant columns; the reference's
-`device_prover.py:776-800` and host `prover.py:294-321`). Not ported, and
-raising NotImplementedError: the poseidon (not poseidon2) tree hasher.
+`device_prover.py:776-800` and host `prover.py:294-321`). Every tree
+hasher of the reference is ported.
 
 Setup and prove run under `torch.inference_mode()`: nothing is
 differentiated, and each of a prove's hundreds of thousands of ops skips
@@ -79,7 +82,7 @@ def resolve_device(device) -> torch.device:
 
 def _check_supported(hasher: str):
     if hasher not in TREE_HASHERS:
-        raise NotImplementedError("tree hasher %r is not ported" % hasher)
+        raise ValueError("unknown tree hasher %r" % (hasher,))
 
 
 def _selector_product(path, const_cols, size, dev):
@@ -173,8 +176,9 @@ class DeviceProver:
         device and the host one on the CPU (the reference's rule, fuse =
         off the CPU); True takes it anywhere (on the CPU through its plain
         versions); False keeps the host transcript. The device transcript
-        needs an algebraic ``transcript_kind`` and the poseidon2
-        ``hasher``; the byte transcripts always run on the host (True
+        needs an algebraic ``transcript_kind`` and an algebraic
+        ``hasher`` (poseidon2 or poseidon); the byte transcripts and byte
+        trees always run with the host transcript (True
         raises ValueError there). ``verbose`` prints the
         stage split (each stage ends in a device sync); ``on_stage(label)``,
         if given, is called at the end of each stage of that split, after
@@ -221,11 +225,11 @@ class DeviceProver:
                                 device=dev)
 
         eligible = (transcript_kind in ("poseidon", "poseidon2")
-                    and hasher == "poseidon2")
+                    and hasher in ("poseidon2", "poseidon"))
         if device_transcript and not eligible:
             raise ValueError("the device transcript needs the poseidon or "
-                             "poseidon2 transcript and the poseidon2 tree "
-                             "hasher, not %r and %r"
+                             "poseidon2 transcript and the poseidon2 or "
+                             "poseidon tree hasher, not %r and %r"
                              % (transcript_kind, hasher))
         use_dev_ts = eligible and (dev.type == "cuda"
                                    if device_transcript is None

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from . import device as dops
-from .device_merkle import TREE_HASHERS, _flush_alone, build_any_device_tree
+from .device_merkle import _flush_alone, build_any_device_tree
 from .proof import OracleQuery
 
 
@@ -25,9 +25,6 @@ class DeviceOracle:
 
     def __init__(self, lagrange_cols, lde_factor: int, cap_size: int,
                  hasher: str, device, tree_lde: int = None, monomials=None):
-        if hasher not in TREE_HASHERS:
-            raise NotImplementedError("the %r tree hasher is not ported"
-                                      % (hasher,))
         if monomials is None:
             if not isinstance(lagrange_cols, torch.Tensor):
                 lagrange_cols = dops.to_device_cols(lagrange_cols, device)

@@ -54,6 +54,9 @@ _SIGNATURES = {
         # state, elements, k, out state, round constants, stream
         "poseidon_absorb": [_P, _P, _LL, _P, _P, _P],
         "poseidon_permute": [_P, _P, _P, _P],  # state, out, constants, stream
+        # cols, out, k, m, row stride of cols, constants, stream
+        "poseidon_leaf_hashes": [_P, _P, _I, _LL, _LL, _P, _P],
+        "poseidon_node_layer": [_P, _P, _LL, _P, _P],  # cur, out, m, constants, stream
     },
     # cols, out, k, m, row stride of cols, stream; cur, out, m, levels,
     # tickets, stream

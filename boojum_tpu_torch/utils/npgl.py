@@ -1,4 +1,4 @@
-# Copied from boojum_tpu/utils/npgl.py, without the native-library fast paths.
+# Copied from boojum_tpu/utils/npgl.py.
 """Vectorized host-side Goldilocks arithmetic on numpy uint64 arrays.
 
 Used by witness generation (the TPU build's replacement for the reference's
@@ -104,6 +104,10 @@ def mul(a, b):
     if _tiny(a, b):
         v = (int(a.reshape(-1)[0]) * int(b.reshape(-1)[0])) % ORDER
         return np.full(a.shape if a.ndim >= b.ndim else b.shape, v, np.uint64)
+    if a.shape == b.shape and a.size >= 1024:
+        from . import native
+        if native.available():
+            return native.mul(a, b).reshape(a.shape)
     hi, lo = _mul_wide(a, b)
     return _reduce128(hi, lo)
 
@@ -132,8 +136,14 @@ def inv(a):
 
 
 def batch_inv(a):
-    """Bulk inversion; 0 maps to 0 (vectorized Fermat)."""
-    return inv(np.asarray(a, np.uint64))
+    """Bulk inversion; 0 maps to 0. Native Montgomery chain when available
+    (~600x numpy Fermat), else vectorized Fermat."""
+    a = np.asarray(a, np.uint64)
+    if a.size >= 64:
+        from . import native
+        if native.available():
+            return native.batch_inv(a.reshape(-1)).reshape(a.shape)
+    return inv(a)
 
 
 # -- extension-field (c0, c1) pair helpers, vectorized ----------------------

@@ -11,7 +11,11 @@ with the cross twiddle / inverse) at two ragged batches and at the NTT
 path's two shapes with its real twiddle tables, `sha256_witness` at 1, 3,
 129 (the flagship) and 1000 chained blocks, the Poseidon sponge
 (`poseidon_absorb` at 0 .. 130 elements from several states, and
-`poseidon_permute`), and the Blake2s (K8) and Keccak-256 (K9) tree hashes
+`poseidon_permute`), the classic-Poseidon tree entries of the same library
+(`poseidon_leaf_hashes` at k = 1, 7, 8, 9, 16, 93 elements a leaf and on a
+strided view, `poseidon_node_layer` at m = 2, 32, 1000; both also at every
+tree shape of a Poseidon-tree prove), and the Blake2s (K8) and Keccak-256
+(K9) tree hashes
 (`*_leaf_hashes` at k = 1, 8, 16, 17, 34, 93 elements a leaf, the block
 boundaries of both hashes, and on a strided view; `*_node_layers`, every
 node layer of a tree in one launch (two above 2^17 leaves), against the
@@ -29,10 +33,10 @@ after:
   `scripts/torch_reference_digest.py` from the JAX package). The default
   prove must take the device witness program (`sha256_witness` once a
   prove, `materialize_witness_columns` never) and the device transcript
-  (`poseidon_sponge` more than once a prove). Two warm proves with the
-  device transcript alternate with two with the host transcript
-  (`device_transcript=False`), which must give the same digest; both sets
-  of times are printed. Each mode's stage split comes from synced proves
+  (`poseidon_sponge` more than once a prove). A warm prove with the
+  device transcript alternates with one with the host transcript
+  (`device_transcript=False`), which must give the same digest; both times
+  are printed. Each mode's stage split comes from synced proves
   alternated with the other mode's, and each stage's torch ops from one
   prove a mode with its ops counted (`scripts/torch_profile_flagship.py`
   gives a prove's kernels, device time and idle share under
@@ -48,10 +52,20 @@ after:
   summed bound of its layers, and the shapes of a Keccak-256 circuit prove,
   of a recursion outer prove and of the lookup-heavy circuit's proves, each
   shape checked and timed once);
+- the Poseidon-tree flagship: the same circuit and base setup, Poseidon
+  transcript, classic-Poseidon trees (tree hasher "poseidon", entries
+  `poseidon_leaf_hashes` / `poseidon_node_layer`), LDE 8, cap 16: its
+  device setup, one cold and one warm prove with the device transcript,
+  each held to `boojum_tpu_torch/data/flagship_poseidon_proof_digest.json`
+  and with its synchronizing calls counted (the warm prove at most 3), one
+  prove with its torch ops counted by stage, and the peak device memory;
+  the proves must launch the two tree entries, `ntt_stage`,
+  `sha256_witness` and `poseidon_sponge`, and no Poseidon2 tree entry and
+  no plain version;
 - the non-recursive flagship: the same circuit in the reference's own
   non-recursive configuration, the Blake2s transcript (on the host) and
   Blake2s trees (K8), LDE 8, cap 16, security 100, no PoW: setup, one cold
-  and two warm proves, each proof's digest equal to
+  and one warm prove, each proof's digest equal to
   `boojum_tpu_torch/data/flagship_blake2s_proof_digest.json`, the stage
   split of a synced prove, and at most 12 synchronizing calls in a warm
   prove; then one Keccak-256 prove (K9) against
@@ -60,8 +74,8 @@ after:
   no prove may launch `*_node_layers` more than 16 times;
 - the Keccak-256 circuit (BASELINE config 3): the 1 kB Keccak-256 gadget
   circuit (2^16 rows), Poseidon transcript, Poseidon2 trees: synthesis,
-  then the per-circuit path `circuit_path`: setup, one cold and two warm
-  proves, each proof's digest equal to
+  then the per-circuit path `circuit_path`: setup, one cold and one warm
+  prove, each proof's digest equal to
   `boojum_tpu_torch/data/keccak256_1kB_proof_digest.json` and its
   synchronizing calls counted (a warm prove at most 3), one synced prove
   for its stage split and one with its torch ops counted by stage
@@ -88,8 +102,8 @@ after:
   width 3 in 8 repetitions, a shared constant table id) and in the
   general-purpose mode (`table_id_as_constant(width=3)`, the lookups on
   the marker gate's rows): for each, synthesis, then `circuit_path` as for
-  the Keccak-256 circuit: setup, one cold and warm proves (two
-  specialized, one general), each timed, held to
+  the Keccak-256 circuit: setup, one cold and one warm prove, each timed,
+  held to
   `boojum_tpu_torch/data/lookup_heavy_proof_digest.json` or
   `lookup_heavy_general_proof_digest.json` and with its synchronizing calls
   counted (a warm prove at most 3), one synced prove for its stage split,
@@ -98,10 +112,10 @@ after:
   `lookup_heavy_general` profiles a prove); every prove must take the
   device witness program;
 - the verifier: the port's `verify` (host code, no launch) accepts the
-  Poseidon, Blake2s and Keccak-256 flagship proofs, the Keccak-256 circuit
-  proof, the recursion configuration's inner and outer proofs and the
-  lookup-heavy circuit's two proofs, each
-  timed, and rejects the Blake2s proof with one witness leaf element
+  Poseidon, Poseidon-tree, Blake2s and Keccak-256 flagship proofs, the
+  Keccak-256 circuit proof, the recursion configuration's inner and outer
+  proofs and the lookup-heavy circuit's two proofs, each timed, and rejects
+  the Blake2s and the Poseidon-tree proofs with one witness leaf element
   flipped;
 - the standalone NTT: runs `pallas_ntt.ntt_any` at (2^24, 8), whose output
   must equal the digest in `boojum_tpu_torch/data/ntt_2e24_digest.json`
@@ -148,8 +162,9 @@ P2_REPLACES = "boojum_tpu/hash/pallas_poseidon2.py:43"
 # the classic Poseidon of the transcript has the same s-box multiplies
 POSEIDON_MULS = P2_MULS
 K5_REPLACES = "boojum_tpu/gadgets/sha256.py:545"
-# warm flagship proves in each transcript mode, alternated
-WARM_ROUNDS = 2
+# warm flagship proves in each transcript mode, alternated (two until the
+# Poseidon-tree flagship came: the run has to stay within its time)
+WARM_ROUNDS = 1
 # synced proves a mode, alternated, for the stage split of each mode
 PROFILE_ROUNDS = 1
 # most synchronizing calls a warm prove may make: the device transcript's
@@ -157,6 +172,13 @@ PROFILE_ROUNDS = 1
 # host transcript adds its cap reads, the evaluations and the final layer
 MAX_SYNCS = {"device": 3, "host": 12}
 K6_REPLACES = "boojum_tpu/prover/device_transcript.py:87"
+# the classic-Poseidon tree entries of csrc/poseidon.cu replace the batched
+# jnp sponge behind the reference's host AlgebraicMerkleTree
+PTREE_NAMES = {"leaf": "poseidon_leaf_hashes", "node": "poseidon_node_layer"}
+PTREE_REPLACES = {"leaf": "boojum_tpu/hash/sponge.py:116",
+                  "node": "boojum_tpu/hash/sponge.py:147"}
+# warm proves of the Poseidon-tree flagship after its cold prove
+PTREE_WARM_PROVES = 1
 # the compiled JAX loops that K8 (Blake2s) and K9 (Keccak-256) replace
 BYTE_REPLACES = {
     ("blake2s", "leaf"): "boojum_tpu/hash/device_bytes_hash.py:123",
@@ -171,14 +193,15 @@ BYTE_LIBS = {"blake2s": "blake2s", "keccak256": "keccak"}
 # and for the FMA pipe (IMAD) each; an SM issues 128 thread-instructions a
 # clock in all
 H100_INT_PER_S = H100_IMAD_PER_S
-# warm proves of the Blake2s configuration
-BYTE_WARM_PROVES = 2
-# warm proves of the Keccak-256 circuit after its cold prove
-KECCAK_WARM_PROVES = 2
+# warm proves of the Blake2s configuration (two until the Poseidon-tree
+# flagship came: the run has to stay within its time)
+BYTE_WARM_PROVES = 1
+# warm proves of the Keccak-256 circuit after its cold prove (two before)
+KECCAK_WARM_PROVES = 1
 # warm proves of each variant of the lookup-heavy circuit (BASELINE config
 # 4), after its cold prove: the specialized (the reference's) and the
-# general-purpose variant
-LOOKUP_VARIANTS = (("specialized", "lookup_heavy_proof_digest.json", 2),
+# general-purpose variant (the specialized one took two before)
+LOOKUP_VARIANTS = (("specialized", "lookup_heavy_proof_digest.json", 1),
                    ("general", "lookup_heavy_general_proof_digest.json", 1))
 # most `*_node_layers` launches a byte-tree prove may make: it makes 10, two
 # for each 2^19-leaf tree and one for the 2^16, 2^13, 2^10 and 2^7 ones
@@ -222,6 +245,24 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def plain_run(fn, timed):
+    """``fn()`` (a plain version) once, and with ``timed`` its time on the
+    card between CUDA events: the plain versions take 0.06 to 6 s a call,
+    so the one call that the bit-equality check needs is also the timed
+    one, with no warm-up. Returns (output, ms or None)."""
+    import torch
+    if not timed:
+        return fn(), None
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(nbytes, field_muls):
@@ -282,6 +323,8 @@ def sass_report():
     for lib in ("sha256_witness", "poseidon"):
         for kname, instrs in sorted(
                 cuda_build.sass(cuda_build._lib_path(lib)).items()):
+            if "leaf_kernel" in kname or "node_kernel" in kname:
+                continue  # the tree entries: ptree_sass
             s = cuda_build.sass_summary(instrs)
             short = next((t for t in ("absorb_kernel", "permute_kernel",
                                       "sha256_witness_kernel")
@@ -370,14 +413,16 @@ def time_ntt_stage(rng, r, m, inverse, twmode, width, plain=False):
     """K1 at one shape: bit-equal to its plain version, then timed."""
     from boojum_tpu_torch.ntt import mxu_ntt
     x, kw = k1_args(rng, r, m, inverse, twmode, width)
+    want, plain_ms = plain_run(lambda: mxu_ntt.ntt_stage_plain(x, **kw),
+                               plain)
     err = require_equal(
-        mxu_ntt.ntt_cols_matmul(x, **kw), mxu_ntt.ntt_stage_plain(x, **kw),
+        mxu_ntt.ntt_cols_matmul(x, **kw), want,
         "ntt_stage R=%d M=%d inverse=%d twmode=%d W=%d"
         % (r, m, inverse, twmode, width))
     res = dict(err=err,
                ms=cuda_ms(lambda: mxu_ntt.ntt_cols_matmul(x, **kw), 20))
     if plain:
-        res["plain_ms"] = cuda_ms(lambda: mxu_ntt.ntt_stage_plain(x, **kw), 2)
+        res["plain_ms"] = plain_ms
     res["bound_ms"], res["bound_by"] = k1_bound(r, m, inverse, twmode, width)
     return res
 
@@ -447,10 +492,11 @@ def time_p2(shape, x, plain=False):
                                 pp.permutation_plain),
                     "leaf": (pp.leaf_hashes, pp.leaf_hashes_plain),
                     "node": (pp.node_layer, pp.node_layer_plain)}[shape[0]]
-    err = require_equal(fn(x), plain_fn(x), "poseidon2 %s" % (shape,))
+    want, plain_ms = plain_run(lambda: plain_fn(x), plain)
+    err = require_equal(fn(x), want, "poseidon2 %s" % (shape,))
     res = dict(err=err, ms=cuda_ms(lambda: fn(x), 20))
     if plain:
-        res["plain_ms"] = cuda_ms(lambda: plain_fn(x), 2)
+        res["plain_ms"] = plain_ms
     res["bound_ms"], res["bound_by"] = p2_bound(shape)
     n = x.shape[1] // (2 if shape[0] == "node" else 1)
     log("%s %s: bit-equal, %.4f ms kernel (%.1f M perm/s%s), bound %.4f ms "
@@ -513,13 +559,13 @@ def check_ntt_small(rng):
         for mode in ("forward", "twiddle", "inverse"):
             kw = dict(tw=tw, tw_shift=shift) if mode == "twiddle" else {}
             inv = mode == "inverse"
-            err = require_equal(pn.ntt_small(x, log_n, inv, **kw),
-                                pn.ntt_small_plain(x, log_n, inv, **kw),
+            want, plain_ms = plain_run(
+                lambda: pn.ntt_small_plain(x, log_n, inv, **kw), True)
+            err = require_equal(pn.ntt_small(x, log_n, inv, **kw), want,
                                 "ntt_small n=%d B=%d %s" % (n, b, mode))
             errs.append(err)
+            del want
             ms = cuda_ms(lambda: pn.ntt_small(x, log_n, inv, **kw), 20)
-            plain_ms = cuda_ms(lambda: pn.ntt_small_plain(x, log_n, inv,
-                                                          **kw), 2)
             tw_bytes = tw.numel() * 8 if mode == "twiddle" else 0
             muls = (n // 2) * log_n * b + n * b * int(mode != "forward")
             b_ms, b_by = bound(2 * n * b * 8 + n * 8 + tw_bytes, muls)
@@ -563,14 +609,14 @@ def time_k5(rng, nb, plain=False):
     the chain model beside the roofline bound."""
     from boojum_tpu_torch.gadgets import sha256_witness as sw
     blocks, init = k5_inputs(rng, nb)
-    err = require_equal(sw.compress_chain(blocks, init),
-                        sw.compress_chain_plain(blocks, init),
+    want, plain_ms = plain_run(lambda: sw.compress_chain_plain(blocks, init),
+                               plain)
+    err = require_equal(sw.compress_chain(blocks, init), want,
                         "sha256_witness nb=%d" % nb)
     res = dict(err=err, ms=cuda_ms(lambda: sw.compress_chain(blocks, init),
                                    20))
     if plain:
-        res["plain_ms"] = cuda_ms(
-            lambda: sw.compress_chain_plain(blocks, init), 1)
+        res["plain_ms"] = plain_ms
     res["bound_ms"], res["bound_by"] = k5_bound(nb)
     res["chain_ms"] = nb * 64 * SHA_ROUND_DEP * DEP_CYCLES / sm_clock_hz() * 1e3
     log("sha256_witness nb=%d: bit-equal, %.4f ms kernel%s, roofline bound "
@@ -619,10 +665,11 @@ def time_k6(rng, shape, plain=False):
     else:
         fn = lambda: poseidon.sponge_permute(st)  # noqa: E731
         plain_fn = lambda: poseidon.sponge_permute_plain(st)  # noqa: E731
-    err = require_equal(fn(), plain_fn(), "poseidon sponge %s" % (shape,))
+    want, plain_ms = plain_run(plain_fn, plain)
+    err = require_equal(fn(), want, "poseidon sponge %s" % (shape,))
     res = dict(err=err, ms=cuda_ms(fn, 20))
     if plain:
-        res["plain_ms"] = cuda_ms(plain_fn, 1)
+        res["plain_ms"] = plain_ms
     res["bound_ms"], res["bound_by"] = k6_bound(shape)
     nperm = shape[1] if shape[0] == "absorb" else 1
     res["chain_ms"] = nperm * 30 * POSEIDON_ROUND_DEP * DEP_CYCLES \
@@ -663,6 +710,142 @@ def check_poseidon_sponge(rng):
         "4 states (%d launches), poseidon_permute at 4 states" % len(lanes))
     timing = time_k6(rng, ("permute",))
     return max(errs + [timing["err"]])
+
+
+# ---------------------------------------------------------------------------
+# the classic-Poseidon tree entries (poseidon_leaf_hashes, poseidon_node_layer)
+# ---------------------------------------------------------------------------
+
+# entry ("leaf" or "node") -> {"fixed": counts, "per_perm": counts}, from
+# SASS, by pipe as `pipe_counts` gives them
+PTREE_SASS = {}
+
+
+def ptree_sass():
+    """SASS of the two tree entries of `csrc/poseidon.cu`, split into a
+    fixed part and a part a permutation: the innermost loops are the three
+    round loops (4 full, 22 partial, 4 full rounds, `P2_ROUND_TRIPS`),
+    each body counted its trips; the leaf kernel's rate-block loop holds
+    them, so a leaf permutation is that loop's body with its round loops
+    expanded and the rest is fixed; a node thread runs one permutation, so
+    its whole kernel counts as one."""
+    from boojum_tpu_torch.utils import cuda_build
+
+    def comb(a, b, kb=1):
+        return {p: a[p] + kb * b[p] for p in PIPES}
+
+    for kname, instrs in cuda_build.sass(
+            cuda_build._lib_path("poseidon")).items():
+        entry = "leaf" if "leaf_kernel" in kname else \
+            "node" if "node_kernel" in kname else None
+        if entry is None:
+            continue
+        s = cuda_build.sass_summary(instrs, cuda_build.P2_ROUND_TRIPS)
+        loops = s["loops"]
+        inner = sorted((lp for lp in loops if not any(
+            o is not lp and lp["start"] <= o["start"] and o["end"] <= lp["end"]
+            for o in loops)), key=lambda lp: lp["start"])
+        outer = [lp for lp in loops if lp not in inner]
+        if len(inner) != 3 or len(outer) != (entry == "leaf"):
+            raise AssertionError("sass poseidon %s_kernel: %d loops, not the "
+                                 "kernel's structure" % (entry, len(loops)))
+        whole = pipe_counts(instrs)
+        body = pipe_counts(instrs, outer[0]["start"], outer[0]["end"]) \
+            if outer else whole
+        per = body
+        for t, lp in zip(cuda_build.P2_ROUND_TRIPS, inner):
+            per = comb(per, pipe_counts(instrs, lp["start"], lp["end"]), t - 1)
+        fixed = comb(whole, body, -1)
+        PTREE_SASS[entry] = dict(fixed=fixed, per_perm=per)
+        log("sass poseidon %s_kernel: %d instructions, %d integer-pipe, %d "
+            "IMAD, %d loops; per permutation %s, fixed %s"
+            % (entry, s["total"], s["integer"], s["imad"], len(loops),
+               json.dumps(per), json.dumps(fixed)))
+
+
+def ptree_perms(shape):
+    """(threads, permutations) of one launch: ("leaf", k, m) or ("node",
+    m)."""
+    if shape[0] == "leaf":
+        return shape[2], shape[2] * -(-shape[1] // 8)
+    return shape[1] // 2, shape[1] // 2
+
+
+def ptree_sass_ms(shape):
+    """The time the entry's own SASS (`ptree_sass`) takes for one launch at
+    the card's issue rates: 64 thread-instructions a clock on an SM for the
+    ALU pipe and for the FMA pipe each, 128 issue slots in all, whichever
+    is longest; the bound from the instructions the compiled round issues,
+    beside `p2_bound`'s from the s-box multiplies alone."""
+    threads, perms = ptree_perms(shape)
+    c = PTREE_SASS[shape[0]]
+    counts = {p: threads * c["fixed"][p] + perms * c["per_perm"][p]
+              for p in PIPES}
+    return max(counts["alu"], counts["fma"],
+               counts["all"] / 2) / H100_INT_PER_S * 1e3
+
+
+def time_ptree(rng, shape, plain=False):
+    """A tree entry at one shape, ("leaf", k, m) or ("node", m): bit-equal
+    to its plain version, then timed; the bound is `p2_bound`'s (the same
+    472 s-box multiplies a permutation, the same bytes)."""
+    from boojum_tpu_torch.hash import poseidon
+    x = rand_field(rng, shape[1:] if shape[0] == "leaf" else (4, shape[1]))
+    fn, plain_fn = {"leaf": (poseidon.leaf_hashes, poseidon.leaf_hashes_plain),
+                    "node": (poseidon.node_layer, poseidon.node_layer_plain)
+                    }[shape[0]]
+    want, plain_ms = plain_run(lambda: plain_fn(x), plain)
+    err = require_equal(fn(x), want, "%s %s" % (PTREE_NAMES[shape[0]],
+                                                shape[1:]))
+    res = dict(err=err, ms=cuda_ms(lambda: fn(x), 20))
+    if plain:
+        res["plain_ms"] = plain_ms
+    res["bound_ms"], res["bound_by"] = p2_bound(shape)
+    res["sass_ms"] = ptree_sass_ms(shape)
+    _, perms = ptree_perms(shape)
+    log("%s %s: bit-equal, %.4f ms kernel (%.1f M perm/s%s), bound %.4f ms "
+        "(%s), %.1f%% of bound; its SASS at the issue rates %.4f ms (%.1f%%)"
+        % (PTREE_NAMES[shape[0]], shape[1:], res["ms"],
+           perms / res["ms"] / 1e3,
+           ", plain %.2f ms" % res["plain_ms"] if plain else "",
+           res["bound_ms"], res["bound_by"],
+           100 * res["bound_ms"] / res["ms"], res["sass_ms"],
+           100 * res["sass_ms"] / res["ms"]))
+    return res
+
+
+def check_poseidon_tree(rng):
+    """The classic-Poseidon tree entries bit-equal to their plain versions:
+    leaves at k = 1, 7, 8, 9, 16, 93 (a partial block, whole blocks, one
+    more element, the flagship's witness width) on m = 1000 + k and on a
+    strided view; node layers at m = 2, 32, 1000; both rows timed with
+    their plain versions at (93, 2^19) and m = 2^19. Every shape of a
+    prove is checked and timed again in `per_prove_costs`. Returns {entry
+    name: (largest error, timing of the row's shape)}."""
+    from boojum_tpu_torch.hash import poseidon
+    errs = []
+    for k in (1, 7, 8, 9, 16, 93):
+        x = rand_field(rng, (k, 1000 + k))
+        errs.append(require_equal(poseidon.leaf_hashes(x),
+                                  poseidon.leaf_hashes_plain(x),
+                                  "poseidon_leaf_hashes k=%d" % k))
+    view = rand_field(rng, (9, 4096))[:, :2048]  # a row stride > m
+    errs.append(require_equal(poseidon.leaf_hashes(view),
+                              poseidon.leaf_hashes_plain(view),
+                              "poseidon_leaf_hashes on a strided view"))
+    t = time_ptree(rng, ("leaf", 93, 1 << 19), plain=True)
+    out = {"poseidon_leaf_hashes": (max(errs + [t["err"]]), t)}
+    errs = []
+    for m in (2, 32, 1000):
+        cur = rand_field(rng, (4, m))
+        errs.append(require_equal(poseidon.node_layer(cur),
+                                  poseidon.node_layer_plain(cur),
+                                  "poseidon_node_layer m=%d" % m))
+    t = time_ptree(rng, ("node", 1 << 19), plain=True)
+    out["poseidon_node_layer"] = (max(errs + [t["err"]]), t)
+    log("poseidon tree: leaf hashes bit-equal at k = 1, 7, 8, 9, 16, 93 and a "
+        "strided (9, 2^11) view; node layers at m = 2, 32, 1000 and 2^19")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -819,24 +1002,26 @@ def byte_input(rng, shape):
                                     dtype=np.uint64), "cuda")
 
 
-def check_node_layers(algo, cur, cap):
+def check_node_layers(algo, cur, cap, timed=False):
     """`node_layers` bit-equal to the plain chain, layer by layer, in the
-    launches `node_launches` plans; returns the error."""
+    launches `node_launches` plans; returns the error and, with ``timed``,
+    the plain chain's time (`plain_run`)."""
     import torch
     from boojum_tpu_torch.hash import device_bytes_hash as dbh
     before = dbh.NODE_LAUNCHES[algo]
     got = dbh.node_layers(cur, algo, cap)
     launches = dbh.NODE_LAUNCHES[algo] - before
-    want = dbh.node_layers_plain(cur, algo, cap)
+    want, plain_ms = plain_run(lambda: dbh.node_layers_plain(cur, algo, cap),
+                               timed)
     what = "%s node_layers m=%d cap=%d" % (algo, cur.shape[1], cap)
     if [g.shape for g in got] != [w.shape for w in want] or \
             launches != len(dbh.node_launches(cur.shape[1], len(want))):
         raise AssertionError("%s: layers %s, %d launches" % (
             what, [tuple(g.shape) for g in got], launches))
     if not got:
-        return 0.0
+        return 0.0, plain_ms
     flat = [torch.cat([t.reshape(-1) for t in ts]) for ts in (got, want)]
-    return require_equal(flat[0], flat[1], what)
+    return require_equal(flat[0], flat[1], what), plain_ms
 
 
 def time_byte(rng, algo, shape, plain=False):
@@ -849,21 +1034,17 @@ def time_byte(rng, algo, shape, plain=False):
         def fn():
             return dbh.leaf_hashes(x, algo)
 
-        def plain_fn():
-            return dbh._PLAIN[algo][0](x)
-        err = require_equal(fn(), plain_fn(), "%s %s" % (algo, shape))
+        want, plain_ms = plain_run(lambda: dbh._PLAIN[algo][0](x), plain)
+        err = require_equal(fn(), want, "%s %s" % (algo, shape))
     else:
         cap = shape[1] >> shape[2]
 
         def fn():
             return dbh.node_layers(x, algo, cap)
-
-        def plain_fn():
-            return dbh.node_layers_plain(x, algo, cap)
-        err = check_node_layers(algo, x, cap)
+        err, plain_ms = check_node_layers(algo, x, cap, plain)
     res = dict(err=err, ms=cuda_ms(fn, 20))
     if plain:
-        res["plain_ms"] = cuda_ms(plain_fn, 1)
+        res["plain_ms"] = plain_ms
     res["bound_ms"], res["bound_by"] = byte_bound(algo, shape)
     res["sass_ms"] = byte_sass_ms(algo, shape)
     log("%s %s %s: bit-equal, %.4f ms kernel%s, bound %.4f ms (%s), %.1f%% "
@@ -910,7 +1091,7 @@ def check_bytes_hash(rng):
                                   "%s leaf on a strided view" % algo))
         t = time_byte(rng, algo, ("leaf", 93, 1 << 19), plain=True)
         out["%s_leaf_hashes" % algo] = (max(errs + [t["err"]]), t)
-        errs = [check_node_layers(algo, byte_input(rng, ("node", m)), cap)
+        errs = [check_node_layers(algo, byte_input(rng, ("node", m)), cap)[0]
                 for m, cap in NODE_CHECKS]
         t = time_byte(rng, algo, NODE_ROW, plain=True)
         out["%s_node_layers" % algo] = (max(errs + [t["err"]]), t)
@@ -939,6 +1120,7 @@ def reset_counts():
         if hasattr(mod, "SHAPES"):
             mod.SHAPES.clear()
     pp.LEAF_LAUNCHES = pp.NODE_LAUNCHES = 0
+    poseidon.LEAF_LAUNCHES = poseidon.NODE_LAUNCHES = 0
     pn.TORCH_TWIDDLE_MULS = 0
     dbh.LEAF_LAUNCHES.clear()
     dbh.NODE_LAUNCHES.clear()
@@ -960,6 +1142,8 @@ def read_counts():
                 poseidon2_node_layer=pp.NODE_LAUNCHES,
                 ntt_small=pn.LAUNCHES, sha256_witness=sw.LAUNCHES,
                 poseidon_sponge=poseidon.LAUNCHES,
+                poseidon_leaf_hashes=poseidon.LEAF_LAUNCHES,
+                poseidon_node_layer=poseidon.NODE_LAUNCHES,
                 blake2s_leaf_hashes=dbh.LEAF_LAUNCHES["blake2s"],
                 blake2s_node_layers=dbh.NODE_LAUNCHES["blake2s"],
                 keccak256_leaf_hashes=dbh.LEAF_LAUNCHES["keccak256"],
@@ -1070,6 +1254,11 @@ def per_prove_costs(rng, label, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
         log("per %s: sha256_witness nb=%d x %d" % (label, nb, n))
         add("sha256_witness", n, nb, lambda: time_k5(rng, nb))
     for shape, n in sorted(k6_shapes.items()):
+        if shape[0] in PTREE_NAMES:  # the classic-Poseidon tree entries
+            name = PTREE_NAMES[shape[0]]
+            log("per %s: %s %s x %d" % (label, name, shape[1:], n))
+            add(name, n, shape, lambda: time_ptree(rng, shape))
+            continue
         log("per %s: poseidon_sponge %s x %d" % (label, shape, n))
         add("poseidon_sponge", n, shape, lambda: time_k6(rng, shape))
     for shape, n in sorted(k1_shapes.items()):
@@ -1341,6 +1530,104 @@ def flagship():
     return counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes, ctx
 
 
+def poseidon_tree_flagship(ctx):
+    """The flagship circuit (the circuit and base setup of `flagship`) with
+    classic-Poseidon trees: the Poseidon transcript (the device one, by
+    default on the card), tree hasher "poseidon" (`poseidon_leaf_hashes`,
+    `poseidon_node_layer`), LDE 8, cap 16, security 100, no PoW. Its
+    device setup, one cold and PTREE_WARM_PROVES warm proves, each held to
+    `flagship_poseidon_proof_digest.json` and with its synchronizing calls
+    counted (a warm prove at most MAX_SYNCS["device"]), then one prove with
+    its torch ops counted by stage; peak device memory. Every prove must
+    take the device witness program and launch the tree entries,
+    `ntt_stage`, `sha256_witness` and `poseidon_sponge`, and neither a
+    Poseidon2 tree entry nor a plain version. Returns the counts of the
+    path, the launches by shape of its setup and of its last warm prove,
+    and its VK and proof."""
+    import torch
+    from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
+                                         create_device_setup)
+
+    name = "poseidon-tree flagship"
+    ref = load_digest("flagship_poseidon_proof_digest.json")
+    base = ctx["ref"]
+    if [ref[k] for k in ("seed", "input_len", "max_trace_len", "config")] != \
+            [base[k] for k in ("seed", "input_len", "max_trace_len",
+                               "config")] or \
+            (ref["transcript"], ref["hasher"]) != ("poseidon", "poseidon"):
+        raise AssertionError("the poseidon-tree digest file is for another "
+                             "circuit or configuration")
+    sha = ref["proof_json_sha256"]
+    cfg = ProofConfig(**ref["config"])
+    host_witness = host_witness_calls()
+    reset_counts()  # counts of this path only
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    art, setup_shapes = launch_shapes(lambda: create_device_setup(
+        ctx["cs"], ctx["sb"], cfg, "poseidon", device="cuda"))
+    prover = DeviceProver(ctx["cs"], art, cfg, device="cuda")
+    torch.cuda.synchronize()
+    log("%s: create_device_setup %.2f s" % (name, time.time() - t0))
+
+    def prove():
+        t = time.time()
+        proof = prover.prove("poseidon", "poseidon")
+        torch.cuda.synchronize()
+        return proof, time.time() - t
+
+    times, shapes = [], None
+    for i in range(1 + PTREE_WARM_PROVES):
+        (sites, (proof, t)), shapes = launch_shapes(
+            lambda: count_syncs(prove))
+        times.append(t)
+        syncs = sum(sites.values())
+        log("%s %s prove: %.4f s, proof_to_json sha256 %s (reference %s); "
+            "synchronizing calls %d, by source line: %s"
+            % (name, "warm" if i else "cold", t, proof_digest(proof), sha,
+               syncs, json.dumps(dict(sites.most_common()))))
+        if proof_digest(proof) != sha:
+            raise AssertionError("a %s proof differs from the reference"
+                                 % name)
+        if i > 0 and syncs > MAX_SYNCS["device"]:
+            raise AssertionError("a warm %s prove made %d synchronizing "
+                                 "calls, more than %d"
+                                 % (name, syncs, MAX_SYNCS["device"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counted, rows = op_counted_prove(lambda on_stage: prover.prove(
+        "poseidon", "poseidon", on_stage=on_stage))
+    if proof_digest(counted) != sha:
+        raise AssertionError("the op-counted %s proof differs" % name)
+    ops = log_stage_ops(name, rows, prover.last_stage_times)
+    counts = read_counts()
+    host_witness = host_witness_calls() - host_witness
+    k1, _, k6 = shapes
+    tree = {e: sum(n for sh, n in k6.items() if sh[0] == e)
+            for e in PTREE_NAMES}
+    log("%s: cold prove %.4f s, warm %s s; peak device memory %.2f GB; %d "
+        "torch ops a prove; a warm prove's launches: %d "
+        "poseidon_leaf_hashes %s, %d poseidon_node_layer, %d ntt_stage, %d "
+        "poseidon_sponge; launches (setup + %d proves): %s"
+        % (name, times[0], ", ".join("%.4f" % t for t in times[1:]),
+           peak_gb, ops, tree["leaf"], json.dumps(sorted(
+               (sh[1:], n) for sh, n in k6.items() if sh[0] == "leaf")),
+           tree["node"], sum(k1.values()),
+           sum(n for sh, n in k6.items() if sh[0] not in PTREE_NAMES),
+           2 + PTREE_WARM_PROVES, json.dumps(counts)))
+    for kernel in ("ntt_stage", "poseidon_leaf_hashes", "poseidon_node_layer",
+                   "sha256_witness", "poseidon_sponge"):
+        if counts[kernel] <= 0:
+            raise AssertionError("%s never launched on the %s path"
+                                 % (kernel, name))
+    if counts["poseidon2_leaf_hashes"] or counts["poseidon2_node_layer"]:
+        raise AssertionError("the %s path hashed with Poseidon2 trees" % name)
+    if counts["plain_on_cuda"]:
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    if host_witness:
+        raise AssertionError("the %s prove called materialize_witness_"
+                             "columns %d times" % (name, host_witness))
+    return counts, dict(setup=setup_shapes, prove=shapes), (art.vk, proof)
+
+
 def byte_flagship(ctx, kind, warm):
     """The reference's non-recursive configuration on the flagship circuit
     (the circuit and base setup of `flagship`): the ``kind`` transcript
@@ -1423,9 +1710,10 @@ def byte_flagship(ctx, kind, warm):
                                  % (name, kind))
     if counts["plain_on_cuda"]:
         raise AssertionError("a plain version ran on a CUDA tensor")
-    if counts["poseidon2_leaf_hashes"] or counts["poseidon_sponge"]:
+    if counts["poseidon2_leaf_hashes"] or counts["poseidon_sponge"] or \
+            counts["poseidon_leaf_hashes"]:
         raise AssertionError("the %s configuration hashed with Poseidon2 "
-                             "trees or the Poseidon sponge" % kind)
+                             "or Poseidon trees or the Poseidon sponge" % kind)
     if warm:
         staged, _ = prove(on_stage=lambda label: None)
         check(staged, "synced")
@@ -1796,9 +2084,9 @@ def lookup_heavy():
     return out
 
 
-def verify_path(proofs):
+def verify_path(proofs, flips=("blake2s", "poseidon trees")):
     """The port's `verify` (host code on Python ints) on each proof,
-    timed, and on the Blake2s proof with one witness leaf element
+    timed, and on the ``flips`` proofs with one witness leaf element
     flipped, which it must reject. It must launch no kernel."""
     import copy
     from boojum_tpu_torch.verifier import verifier
@@ -1815,14 +2103,15 @@ def verify_path(proofs):
         if not ok:
             raise AssertionError("the port's verify rejected the %s proof"
                                  % name)
-    vk, proof, kind, hasher = proofs["blake2s"]
-    bad = copy.deepcopy(proof)
-    bad.queries_per_fri_repetition[0].witness_query.leaf_elements[0] ^= 1
-    if verifier.verify(vk, bad, kind, hasher) is not False:
-        raise AssertionError("the port's verify accepted a proof with a "
-                             "flipped leaf element")
-    log("verify: a flipped witness leaf element is rejected (%s)"
-        % verifier.last_failure())
+    for name in flips:
+        vk, proof, kind, hasher = proofs[name]
+        bad = copy.deepcopy(proof)
+        bad.queries_per_fri_repetition[0].witness_query.leaf_elements[0] ^= 1
+        if verifier.verify(vk, bad, kind, hasher) is not False:
+            raise AssertionError("the port's verify accepted the %s proof "
+                                 "with a flipped leaf element" % name)
+        log("verify: the %s proof with a flipped witness leaf element is "
+            "rejected (%s)" % (name, verifier.last_failure()))
     counts = read_counts()
     if any(v for k, v in counts.items()):
         raise AssertionError("verify launched kernels: %s"
@@ -1864,13 +2153,19 @@ def main():
     t_start = t0 = time.time()
     cuda_build.build_all(verbose=True)
     log("build: %.1f s (%s)" % (time.time() - t0, ", ".join(cuda_build.KERNELS)))
+    from boojum_tpu_torch.utils import native
+    log("host field arithmetic (utils/npgl.py): %s" % (
+        "the native witness engine (g++, boojum_tpu_torch/_build/)"
+        if native.available() else "numpy (no native witness engine)"))
     sass = sass_report()
+    ptree_sass()
     byte_sass()
 
     def phase(name):
         log("phase %s done at %.1f s" % (name, time.time() - t_start))
 
     rng = np.random.default_rng(7)
+    phase("build and SASS")
     k1_err = check_ntt_stage(rng)
     k1 = time_ntt_stage(rng, 256, 1 << 17, False, 1, 256, plain=True)
     log("ntt_stage (256, 2^17) twmode 1: %.4f ms kernel, %.3f ms plain, "
@@ -1878,9 +2173,14 @@ def main():
         % (k1["ms"], k1["plain_ms"], k1["bound_ms"], k1["bound_by"],
            100 * k1["bound_ms"] / k1["ms"]))
     p2 = check_poseidon2(rng)
+    phase("ntt_stage and poseidon2 checks")
     k4_err, k4 = check_ntt_small(rng)
+    phase("ntt_small checks")
     k5_err, k5 = check_sha256_witness(rng)
     k6_err = check_poseidon_sponge(rng)
+    phase("sha256_witness and poseidon_sponge checks")
+    ptree_checks = check_poseidon_tree(rng)
+    phase("poseidon tree checks")
     byte_checks = check_bytes_hash(rng)
     phase("kernel checks")
     if kernels_only:
@@ -1889,6 +2189,8 @@ def main():
 
     counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes, ctx = flagship()
     phase("poseidon flagship")
+    pt_counts, pt_shapes, (pt_vk, pt_proof) = poseidon_tree_flagship(ctx)
+    phase("poseidon-tree flagship")
     b2s_counts, b2s_shapes, b2s_proof, b2s_vk = byte_flagship(
         ctx, "blake2s", BYTE_WARM_PROVES)
     phase("blake2s flagship")
@@ -1904,6 +2206,7 @@ def main():
     verify_secs = verify_path({
         "poseidon": (ctx["vk"], ctx["proof"], ctx["ref"]["transcript"],
                      ctx["ref"]["hasher"]),
+        "poseidon trees": (pt_vk, pt_proof, "poseidon", "poseidon"),
         "blake2s": (b2s_vk, b2s_proof, "blake2s", "blake2s"),
         "keccak256": (kec_vk, kec_proof, "keccak256", "keccak256"),
         "keccak256 circuit": (kcc_vk, kcc_proof, "poseidon", "poseidon2"),
@@ -1917,7 +2220,9 @@ def main():
         rng, "flagship prove", k1_shapes, p2_shapes, k5_blocks, k6_shapes,
         b2s_shapes + kec_shapes, memo)
     path_costs = {"flagship prove": costs}
-    new_paths = [("keccak256 circuit " + k, v) for k, v in kcc_shapes.items()]
+    new_paths = [("poseidon-tree flagship " + k, v)
+                 for k, v in pt_shapes.items()]
+    new_paths += [("keccak256 circuit " + k, v) for k, v in kcc_shapes.items()]
     new_paths += [("recursion " + k, v) for k, v in rec_shapes.items()]
     new_paths += [("lookup heavy %s %s" % (variant, k), v)
                   for variant, lk in lookups.items()
@@ -1937,10 +2242,11 @@ def main():
 
     def row(name, source, replaces, launches, err, t):
         # launches: the kernel's main paths, the flagship's or its own, and
-        # the keccak256 circuit's, the recursion configuration's and the
-        # lookup-heavy circuit's two variants'
-        launches += kcc_counts[name] + rec_counts[name] + sum(
-            lk[0][name] for lk in lookups.values())
+        # the poseidon-tree flagship's, the keccak256 circuit's, the
+        # recursion configuration's and the lookup-heavy circuit's two
+        # variants'
+        launches += pt_counts[name] + kcc_counts[name] + rec_counts[name] \
+            + sum(lk[0][name] for lk in lookups.values())
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches, max_abs_err=err, ms=t["ms"],
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -1973,6 +2279,11 @@ def main():
             K6_REPLACES, counts["poseidon_sponge"],
             max(k6_err, k6["err"], prove_errs["poseidon_sponge"]), k6),
     ]
+    for entry, name in PTREE_NAMES.items():
+        err, t = ptree_checks[name]
+        kernels.append(row(name, "boojum_tpu_torch/csrc/poseidon.cu",
+                           PTREE_REPLACES[entry], 0,
+                           max(err, prove_errs[name]), t))
     for algo, path_counts in (("blake2s", b2s_counts),
                               ("keccak256", kec_counts)):
         for entry, name in (("leaf", "%s_leaf_hashes" % algo),
@@ -1987,7 +2298,8 @@ def main():
         k: {f: v[f] for f in ("total", "integer", "imad", "integer_per_pass",
                               "integer_per_element") if f in v}
         for k, v in sass.items()}, byte_sass={
-            "%s/%s" % k: v for k, v in BYTE_SASS.items()})))
+            "%s/%s" % k: v for k, v in BYTE_SASS.items()},
+        poseidon_tree_sass=PTREE_SASS)))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

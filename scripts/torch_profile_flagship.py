@@ -12,7 +12,10 @@ given against the unprofiled warm prove's wall time.
     python3 scripts/torch_profile_flagship.py [--config NAME]
 
 ``--config flagship`` (the default): the 8 kB SHA-256 circuit
-(`flagship_proof_digest.json`). ``keccak256``: the 1 kB Keccak-256 circuit
+(`flagship_proof_digest.json`). ``flagship_poseidon``: the same circuit
+with classic-Poseidon trees (`flagship_poseidon_proof_digest.json`: tree
+hasher "poseidon", kernels `poseidon_leaf_hashes` / `poseidon_node_layer`).
+``keccak256``: the 1 kB Keccak-256 circuit
 (`keccak256_1kB_proof_digest.json`). ``recursion_outer``: the outer proof
 of the recursion configuration (`recursion_outer_proof_digest.json`; its
 inner proof is made first). ``lookup_heavy`` / ``lookup_heavy_general``:
@@ -76,7 +79,9 @@ def build(config):
         else:
             from boojum_tpu_torch.gadgets.sha256 import \
                 build_sha256_circuit as build_circuit
-            ref = load("flagship_proof_digest.json")
+            ref = load("flagship_poseidon_proof_digest.json"
+                       if config == "flagship_poseidon"
+                       else "flagship_proof_digest.json")
         data = bytes(np.random.default_rng(ref["seed"]).integers(
             0, 256, ref["input_len"], dtype=np.uint8))
         cs, _ = build_circuit(data, ref["max_trace_len"])
@@ -91,8 +96,9 @@ def build(config):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "keccak256", "recursion_outer",
-                             "lookup_heavy", "lookup_heavy_general"))
+                    choices=("flagship", "flagship_poseidon", "keccak256",
+                             "recursion_outer", "lookup_heavy",
+                             "lookup_heavy_general"))
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile

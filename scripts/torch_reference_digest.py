@@ -15,9 +15,14 @@ those digests on the GPU, where JAX is not installed. The host `prove` and
 with the Poseidon transcript and Poseidon2 trees
 (`flagship_proof_digest.json`, a few minutes); `--transcript blake2s
 --hasher blake2s` writes `flagship_blake2s_proof_digest.json` (a few
-minutes) and `--transcript keccak256 --hasher keccak256`
+minutes), `--transcript keccak256 --hasher keccak256`
 `flagship_keccak256_proof_digest.json` (about an hour: the reference's
-Keccak-256 trees hash in pure Python).
+Keccak-256 trees hash in pure Python) and `--transcript poseidon --hasher
+poseidon` `flagship_poseidon_proof_digest.json`. For the classic-Poseidon
+trees the reference sponge's batched permutation runs jitted
+(`tests/torch_small_circuit.use_jax_poseidon_perm`: the package's rolled
+`poseidon._permutation_rolled_gl`, checked against its `s_permutation`
+first); eagerly `poseidon.permutation` would take hours a proof.
 
 ``--config keccak256``: the 1 kB Keccak-256 circuit of
 `scripts/bench_suite.py` (`tests/test_keccak_gadget.build` over 1024 bytes
@@ -93,6 +98,9 @@ def flagship(transcript, hasher):
 
     data = bytes(np.random.default_rng(SEED).integers(0, 256, INPUT_LEN,
                                                       dtype=np.uint8))
+    if hasher == "poseidon":
+        from tests.torch_small_circuit import use_jax_poseidon_perm
+        use_jax_poseidon_perm(setattr, chunks=(1 << 10, 1 << 16))
     t0 = time.time()
     cs, _ = build_sha256_circuit(data, MAX_TRACE_LEN)
     cs.pad_and_shrink()
@@ -118,6 +126,9 @@ def flagship(transcript, hasher):
         "proof_json_chars": chars,
         "proof_json_sha256": sha,
         "made_by": MADE_BY,
+        "runtime_s": dict(synthesis_s=round(t_synth, 1),
+                          setup_s=round(t_setup, 1),
+                          prove_s=round(t_prove, 1)),
     }, dict(synthesis_s=t_synth, setup_s=t_setup, prove_s=t_prove)
 
 
@@ -159,6 +170,9 @@ def keccak256():
         "proof_json_chars": chars,
         "proof_json_sha256": sha,
         "made_by": MADE_BY,
+        "runtime_s": dict(synthesis_s=round(t_synth, 1),
+                          setup_s=round(t_setup, 1),
+                          prove_s=round(t_prove, 1)),
     }, dict(synthesis_s=t_synth, setup_s=t_setup, prove_s=t_prove)
 
 
@@ -350,7 +364,7 @@ def main():
                              "lookup_heavy", "lookup_heavy_general"))
     ap.add_argument("--transcript", default="poseidon", choices=KINDS,
                     help="flagship only")
-    ap.add_argument("--hasher", default="poseidon2", choices=KINDS[1:],
+    ap.add_argument("--hasher", default="poseidon2", choices=KINDS,
                     help="flagship only")
     ap.add_argument("--out", default=None,
                     help="default: boojum_tpu_torch/data/flagship_proof_"

@@ -2,9 +2,16 @@
 device witness program and the device transcript (through the plain versions
 of kernels K5 and K6) give the JAX host `prove`'s proof byte for byte, and
 the JAX verifier accepts it. In a file of its own: at 2^14 rows it is the
-longest of the port's tests (about 1.5 to 3 minutes)."""
+longest of the port's tests (about 1.5 to 3 minutes) and, under
+pytest-xdist, one of the last to start: its prove runs torch on every core
+(`tests/torch_small_circuit.share_cores` gives the other workers one share
+each), since its 2^16-element tensors gain from threads where the small
+ones of the other files do not."""
+
+import os
 
 import numpy as np
+import torch
 
 from boojum_tpu.cs.setup import create_base_setup as ref_create_base_setup
 from boojum_tpu.prover import ProofConfig as RefProofConfig
@@ -33,10 +40,16 @@ def test_device_witness_prove_byte_identical():
                                   RefProofConfig(**cfg), "poseidon2")
     ref_proof = prove(ref_cs, ref_art, RefProofConfig(**cfg), "poseidon",
                       "poseidon2")
-    art = create_device_setup(cs, create_base_setup(cs), ProofConfig(**cfg),
-                              "poseidon2", device="cpu")
-    prover = DeviceProver(cs, art, ProofConfig(**cfg), device="cpu")
-    proof = prover.prove("poseidon", "poseidon2", device_transcript=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        art = create_device_setup(cs, create_base_setup(cs),
+                                  ProofConfig(**cfg), "poseidon2",
+                                  device="cpu")
+        prover = DeviceProver(cs, art, ProofConfig(**cfg), device="cpu")
+        proof = prover.prove("poseidon", "poseidon2", device_transcript=True)
+    finally:
+        torch.set_num_threads(threads)
     assert prover.witness_program() is not None
     assert proof_to_json(proof) == ref_proof_to_json(ref_proof)
     assert verify(ref_art.vk, proof, "poseidon", "poseidon2")

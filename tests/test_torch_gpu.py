@@ -4,7 +4,9 @@ of the redesigned kernels bit-equal to its plain version on the card
 (`ntt_stage` at every template instance and a ragged width; `ntt_small` at
 every template instance, with and without its cross twiddle; the three
 Poseidon2 entries at the trees' shapes; the SHA-256 witness chain at 1 and 3
-blocks; the Poseidon sponge's absorb and permute; the Blake2s and
+blocks; the Poseidon sponge's absorb and permute; the classic-Poseidon
+tree entries at the block-boundary widths and on a strided view; the
+Blake2s and
 Keccak-256 leaf entries at the block-boundary widths and the flagship's
 widest leaf, and their node-layers entries against the plain per-layer
 chain), the device witness program of a small SHA-256
@@ -177,6 +179,23 @@ def test_poseidon2_leaf_hashes_equal_plain(cuda, k, m):
 def test_poseidon2_node_layer_equals_plain(cuda, m):
     cur = _rand(cuda, m, (4, m))
     assert torch.equal(pp.node_layer(cur), pp.node_layer_plain(cur))
+
+
+@pytest.mark.parametrize("k,m", [(1, 1000), (7, 4096), (9, 4096),
+                                 (93, 1 << 16)])
+def test_poseidon_leaf_hashes_equal_plain(cuda, k, m):
+    cols = _rand(cuda, k, (k, m))
+    assert torch.equal(poseidon.leaf_hashes(cols),
+                       poseidon.leaf_hashes_plain(cols))
+    view = cols[:, :m // 2]  # a row stride wider than the leaf count
+    assert torch.equal(poseidon.leaf_hashes(view),
+                       poseidon.leaf_hashes_plain(view))
+
+
+@pytest.mark.parametrize("m", [2, 32, 1000, 1 << 18])
+def test_poseidon_node_layer_equals_plain(cuda, m):
+    cur = _rand(cuda, m, (4, m))
+    assert torch.equal(poseidon.node_layer(cur), poseidon.node_layer_plain(cur))
 
 
 @pytest.mark.parametrize("algo", ["blake2s", "keccak256"])

@@ -55,7 +55,9 @@ def test_entry_points_default_to_the_gpu():
 
 
 # the gadget and recursion modules of the Keccak-256 and recursion slice,
-# and the lookup-heavy circuit's builder
+# the lookup-heavy circuit's builder, and the rest of the circuit library
+# (the wrappers, queues, Blake2s, non-native field and curve gadgets, the
+# gate-testing harness and the native witness engine's bindings)
 SLICE_MODULES = (
     "boojum_tpu_torch.gadgets.lookup_heavy",
     "boojum_tpu_torch.gadgets.keccak256",
@@ -66,6 +68,13 @@ SLICE_MODULES = (
     "boojum_tpu_torch.gadgets.recursion.verifier",
     "boojum_tpu_torch.gadgets.recursion.circuits",
     "boojum_tpu_torch.prover.convenience",
+    "boojum_tpu_torch.gadgets.wrappers",
+    "boojum_tpu_torch.gadgets.queue",
+    "boojum_tpu_torch.gadgets.blake2s",
+    "boojum_tpu_torch.gadgets.non_native",
+    "boojum_tpu_torch.gadgets.curves",
+    "boojum_tpu_torch.cs.gates.testing",
+    "boojum_tpu_torch.utils.native",
 )
 
 
