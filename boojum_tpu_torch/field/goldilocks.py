@@ -131,21 +131,18 @@ def _limbs(b):
 
 
 def _mul_wide(a, b):
-    """64x64 -> (hi, lo) u64 patterns (utils/npgl._mul_wide). ``a`` is a
-    tensor; ``b`` a tensor, a `Prepared` scalar or a non-negative Python
-    int. The four 32x32-bit products wrap to their exact u64 patterns; the
-    middle column sums three 32-bit pieces (< 2^34), so nothing carries
-    out of it."""
+    """64x64 -> (hi, lo) u64 patterns. ``a`` is a tensor; ``b`` a tensor, a
+    `Prepared` scalar or a non-negative Python int. The low word is the
+    wrapped int64 product; the high word is the classic mulhi of the 32-bit
+    halves: t = a0·b1 + (a0·b0 >> 32) and u = a1·b0 + (t mod 2^32) stay
+    below 2^64, and hi = a1·b1 + (t >> 32) + (u >> 32)."""
     a0 = a & _M32
     a1 = _lsr32(a)
     b0, b1 = _limbs(b)
-    ll = a0 * b0
-    lh = a0 * b1
-    hl = a1 * b0
-    mid = _lsr32(ll) + (lh & _M32) + (hl & _M32)
-    lo = (ll & _M32) | (mid << 32)
-    hi = a1 * b1 + _lsr32(lh) + _lsr32(hl) + (mid >> 32)
-    return hi, lo
+    t = a0 * b1 + _lsr32(a0 * b0)
+    u = a1 * b0 + (t & _M32)
+    hi = a1 * b1 + _lsr32(t) + _lsr32(u)
+    return hi, a * _pattern(b)
 
 
 def canonicalize(x):
@@ -153,16 +150,23 @@ def canonicalize(x):
     return torch.where(_ult(x, _P), x, x - _P)
 
 
-def _reduce128(hi, lo):
-    """hi:lo mod p via 2^64 = 2^32 - 1 and 2^96 = -1 (mod p)."""
+def _reduce128_lazy(hi, lo):
+    """hi:lo mod p via 2^64 = 2^32 - 1 and 2^96 = -1 (mod p), not
+    canonicalized: a u64 pattern congruent to the value, maybe >= p. Exact
+    for any hi, lo: the overflowing add cannot wrap twice, and the
+    borrowing subtract leaves s - x3 + p >= 0."""
     x2 = hi & _M32
     x3 = _lsr32(hi)
     e = (x2 << 32) - x2
     s = lo + e
     s = torch.where(_ult(s, lo), s + EPSILON, s)
     d = s - x3
-    d = torch.where(_ult(s, x3), d - EPSILON, d)
-    return canonicalize(d)
+    return torch.where(_ult(s, x3), d - EPSILON, d)
+
+
+def _reduce128(hi, lo):
+    """hi:lo mod p, canonical."""
+    return canonicalize(_reduce128_lazy(hi, lo))
 
 
 # ---------------------------------------------------------------------------

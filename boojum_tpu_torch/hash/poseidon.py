@@ -30,6 +30,7 @@ transcript.rs:131-139) and by the classic-Poseidon Merkle trees.
 from __future__ import annotations
 
 import collections
+import functools
 
 import numpy as np
 import torch
@@ -72,13 +73,19 @@ SHAPES = collections.Counter()
 _M32 = 0xFFFFFFFF
 
 
+@functools.lru_cache(maxsize=None)
+def _mds_exps(device) -> torch.Tensor:
+    """The circulant's exponents e[r][c] as a (12, 12, 1) tensor."""
+    return torch.tensor([[_EXPS[(12 - r + c) % 12] for c in range(12)]
+                         for r in range(12)], dtype=torch.int64,
+                        device=device)[:, :, None]
+
+
 def _mds_stacked(st: torch.Tensor) -> torch.Tensor:
     """The circulant on (12, B): row r is sum_c st[c] * 2^e[r][c], summed
     exactly as two int64 sums of 32-bit halves times 2^e (< 2^52 each), then
     reduced with 2^64 = 2^32 - 1 (mod p)."""
-    exps = torch.tensor([[_EXPS[(12 - r + c) % 12] for c in range(12)]
-                         for r in range(12)], dtype=torch.int64,
-                        device=st.device)[:, :, None]
+    exps = _mds_exps(st.device)
     lo = ((st & _M32)[None] << exps).sum(1)  # (12, B), < 2^52
     hi = ((gl._lsr32(st))[None] << exps).sum(1)
     # value = lo + hi * 2^32, hi = a * 2^32 + b: b * 2^32 + a * (2^32 - 1)
@@ -87,6 +94,7 @@ def _mds_stacked(st: torch.Tensor) -> torch.Tensor:
     return gl.sub(gl.add(out, a << 32), a)
 
 
+@functools.lru_cache(maxsize=None)
 def _rc_column(r: int, device) -> torch.Tensor:
     return torch.tensor([gl.i64(c) for c in _RC[r * 12:(r + 1) * 12]],
                         dtype=torch.int64, device=device)[:, None]

@@ -42,11 +42,22 @@ _MAX_I63 = (1 << 63) - 1
 # ----------------------------------------------------------------------------
 
 
+_M32 = 0xFFFF_FFFF
+
+
+def _mul_lazy(a, b):
+    """a·b mod p for any u64 patterns a, b, not canonicalized."""
+    return gl._reduce128_lazy(*gl._mul_wide(a, b))
+
+
 def _sbox7(x):
-    x2 = gl.square(x)
-    x3 = gl.mul(x, x2)
-    x4 = gl.square(x2)
-    return gl.mul(x3, x4)
+    """x^7 for canonical x, canonical out: x^2, x^3, x^4 and x^7 as lazy
+    products (about three quarters of `goldilocks.mul`'s ops each), one
+    canonicalization at the end."""
+    x2 = _mul_lazy(x, x)
+    x3 = _mul_lazy(x, x2)
+    x4 = _mul_lazy(x2, x2)
+    return gl.canonicalize(_mul_lazy(x3, x4))
 
 
 def _external_mds_stacked(st):
@@ -73,24 +84,52 @@ def _diag_shift_tables(device):
     return s, 63 - s
 
 
+def _sum_lanes(st):
+    """Σ st over the 12 lanes, canonical: the sums of the lanes' 32-bit
+    halves (< 2^36 each), with hi·2^32 = h1·2^64 + h0·2^32 and 2^64 ≡
+    2^32 - 1: lo + h1·(2^32 - 1) < 2^37 and h0·2^32 < p are canonical, and
+    one field add joins them."""
+    lo = (st & _M32).sum(0)
+    hi = gl._lsr32(st).sum(0)
+    return gl.add(lo + (hi >> 32) * gl.EPSILON, (hi & _M32) << 32)
+
+
 def _internal_matrix_stacked(st):
     """st[i] = st[i]·2^shift[i] + Σ st. x·2^s = hi·2^64 + lo with lo = x << s
     (mod 2^64) and hi = x >> (64 - s) (logical, < 2^14), reduced as a
-    product's halves are: the same canonical value as gl.mul(x, 2^s) in
-    about half its ops."""
-    total = gl.sum_mod(st, 0)
+    product's halves are (lazily: the field add of the canonical sum then
+    canonicalizes it): the value of gl.mul(x, 2^s) in about a third of its
+    ops."""
     s, rest = _diag_shift_tables(st.device)
     hi = ((st >> 1) & _MAX_I63) >> rest
-    return gl.add(gl._reduce128(hi, st << s), total[None])
+    return gl.add(gl._reduce128_lazy(hi, st << s), _sum_lanes(st)[None])
 
 
+@functools.lru_cache(maxsize=None)
 def _rc_column(r: int, device):
     return torch.tensor([gl.i64(c) for c in _RC[r * 12:(r + 1) * 12]],
                         dtype=torch.int64, device=device)[:, None]
 
 
+# states a thread of a CPU permutation takes at once: each of the
+# permutation's thousands of elementwise ops then works on tensors that stay
+# in the core's cache instead of streaming through memory
+# (scripts/torch_plain_permutation_chunks.py times it against one batch)
+_CPU_STATES_PER_THREAD = 8192
+
+
 def _permutation_stacked(st: torch.Tensor) -> torch.Tensor:
-    """Poseidon2 on a canonical (12, B) int64 state -> canonical (12, B)."""
+    """Poseidon2 on a canonical (12, B) int64 state -> canonical (12, B).
+    CPU states run in chunks of `_CPU_STATES_PER_THREAD` states a thread of
+    torch's pool."""
+    if st.device.type != "cpu":
+        return _permutation_one(st)
+    chunk = _CPU_STATES_PER_THREAD * torch.get_num_threads()
+    return torch.cat([_permutation_one(st[:, i:i + chunk])
+                      for i in range(0, st.shape[1], chunk)], dim=1)
+
+
+def _permutation_one(st: torch.Tensor) -> torch.Tensor:
     st = _external_mds_stacked(st)
     r = 0
     for _ in range(_R_F_HALF):

@@ -3,9 +3,9 @@
 
 Reference behavior: src/cs/implementations/convenience.rs:34-198
 (`prove_one_shot`, `prepare_base_setup_with_precomputations_and_vk`,
-`prove_from_precomputations`, `verify_circuit`). The port has no host
-`prove`: the setup is the device setup and the prove is `DeviceProver`'s, on
-the GPU unless the caller passes another ``device``.
+`prove_from_precomputations`, `verify_circuit`). The setup is the device
+setup and the prove is `DeviceProver`'s (the same bytes as the host
+`prover.prove`), on the GPU unless the caller passes another ``device``.
 """
 
 from __future__ import annotations

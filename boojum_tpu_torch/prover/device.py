@@ -112,8 +112,21 @@ def monomials_to_lde(mono: torch.Tensor, lde_factor: int) -> torch.Tensor:
     return _blocked(lambda b: _lde_block(b, pows), mono)
 
 
+def lde_flat(lde: torch.Tensor) -> torch.Tensor:
+    """(lde, n, k) -> (lde·n, k) flattened full-domain bitreversed order."""
+    l, n, k = lde.shape
+    return lde.reshape(l * n, k)
+
+
+def leaf_columns(lde: torch.Tensor) -> torch.Tensor:
+    """(lde, n, k) -> (k, lde·n) leaf-source layout for the Merkle builder."""
+    return lde_flat(lde).T
+
+
 # ---------------------------------------------------------------------------
-# Extension-field array helpers
+# Extension-field array helpers (the reference's ext_const, ext_inverse,
+# ext_mul_base and _sum_gl are `extension.full`, `extension.inverse`,
+# `extension.mul_by_base` and `goldilocks.sum_mod`)
 # ---------------------------------------------------------------------------
 
 
@@ -167,11 +180,25 @@ def vanishing_inverse_per_coset(n: int, lde_factor: int) -> np.ndarray:
     return out
 
 
-def unnormalized_l1_lde(n: int, lde_factor: int, device) -> torch.Tensor:
-    """(X^n - 1)/(X - 1) over the LDE cosets, (lde, n) on ``device``
-    (reference prover.rs unnormalized_l1_inverse; the host original's
-    numpy inverse runs here as a tensor inverse)."""
-    x = gl.from_u64(x_poly_lde_host(n, lde_factor), device)
+def unnormalized_l1_lde_host(n: int, lde_factor: int) -> np.ndarray:
+    """(X^n - 1)/(X - 1) over the LDE cosets, (lde, n) host u64
+    (reference prover.rs unnormalized_l1_inverse)."""
+    x = x_poly_lde_host(n, lde_factor)
+    num = np.empty_like(x)
+    cosets = ntt.lde_cosets(n.bit_length() - 1, lde_factor)
+    for k, c in enumerate(cosets):
+        num[k] = (pow(c, n, npgl.ORDER) - 1) % npgl.ORDER
+    den = npgl.sub(x, np.uint64(1))
+    return npgl.mul(num, npgl.batch_inv(den))
+
+
+def unnormalized_l1_lde(n: int, lde_factor: int, device,
+                        rows=slice(None)) -> torch.Tensor:
+    """(X^n - 1)/(X - 1) over the LDE cosets, (lde, n) on ``device``, or
+    over the rows ``rows`` of each coset (reference prover.rs
+    unnormalized_l1_inverse; the host original's numpy inverse runs here as
+    a tensor inverse)."""
+    x = gl.from_u64(x_poly_lde_host(n, lde_factor)[:, rows], device)
     cosets = ntt.lde_cosets(n.bit_length() - 1, lde_factor)
     num = gl.from_u64(np.asarray(
         [(pow(c, n, npgl.ORDER) - 1) % npgl.ORDER for c in cosets],

@@ -45,20 +45,29 @@ class FetchCollector:
     ``add_gather`` (``fn(*args)`` run at the flush) are flattened into one
     int64 tensor on the device, copied once into pinned host memory, and
     the host waits once; each callback then gets the host u64 copy of its
-    entry (one array, or a list of arrays for a sequence of tensors)."""
+    entry (one array, or a list of arrays for a sequence of tensors).
 
-    def __init__(self):
+    With a ``mesh`` (`parallel.sharding.Mesh`) every rank flushes the same
+    entries, and one exchange combines them before the copy: a gather
+    registered ``sharded`` holds this rank's values where it owns them and
+    zeros elsewhere; any other entry is replicated, and only rank 0's copy
+    counts."""
+
+    def __init__(self, mesh=None):
         self._items = []
+        self.mesh = mesh
 
     def add(self, tensors, callback):
         """Fetch already-computed device tensors (one, or a sequence)."""
         one = isinstance(tensors, torch.Tensor)
         self._items.append((None, (tensors,) if one else tuple(tensors),
-                            callback, one))
+                            callback, one, False))
 
-    def add_gather(self, fn, args, callback):
+    def add_gather(self, fn, args, callback, sharded=False):
         """Deferred gather: ``fn(*args)`` -> one tensor, run at the flush."""
-        self._items.append((fn, tuple(args), callback, True))
+        if sharded and self.mesh is None:
+            raise ValueError("a sharded entry needs a collector with a mesh")
+        self._items.append((fn, tuple(args), callback, True, sharded))
 
     def flush(self):
         global FETCHES
@@ -66,8 +75,13 @@ class FetchCollector:
             return
         items, self._items = self._items, []
         outs = [[fn(*args)] if fn is not None else list(args)
-                for (fn, args, _, _) in items]
+                for (fn, args, _, _, _) in items]
+        if self.mesh is not None and self.mesh.rank != 0:
+            outs = [ts if item[4] else [torch.zeros_like(t) for t in ts]
+                    for item, ts in zip(items, outs)]
         flat = torch.cat([t.reshape(-1) for ts in outs for t in ts])
+        if self.mesh is not None:
+            flat = self.mesh.select(flat)
         if flat.is_cuda:
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
             host.copy_(flat, non_blocking=True)
@@ -77,7 +91,7 @@ class FetchCollector:
         arr = host.numpy().view(np.uint64)
         FETCHES += 1
         pos = 0
-        for (_, _, callback, one), ts in zip(items, outs):
+        for (_, _, callback, one, _), ts in zip(items, outs):
             got = []
             for t in ts:
                 got.append(arr[pos:pos + t.numel()].reshape(tuple(t.shape)))
@@ -85,11 +99,12 @@ class FetchCollector:
             callback(got[0] if one else got)
 
 
-def _flush_alone(collector):
+def _flush_alone(collector, mesh=None):
     """The collector to register with, and whether to flush it at once
-    (no caller's collector: a call fetches by itself, as before)."""
+    (no caller's collector: a call fetches by itself, as before; a sharded
+    caller passes its ``mesh``)."""
     return (collector, False) if collector is not None \
-        else (FetchCollector(), True)
+        else (FetchCollector(mesh), True)
 
 
 # the leaf and node hashes of the algebraic trees, by tree hasher
@@ -262,15 +277,17 @@ class DeviceFlatOracle:
 # ---------------------------------------------------------------------------
 
 
-def _fold(c0, c1, roots, chs, cosets):
+def _fold(c0, c1, roots_at, chs, cosets):
     """len(chs) fold-by-2 steps over flat bitreversed ext arrays: g(x²) =
     f(x) + f(-x) + α·(f(x) - f(-x))/x, the challenge α and 1/coset squared
-    per step (chs, cosets: the pre-squared host chains)."""
+    per step (chs, cosets: the pre-squared host chains). ``roots_at(m)``
+    gives the inverse roots of a step's m pairs (the prefix of the full
+    table, or a rank's blocks of it)."""
     for ch, ci in zip(chs, cosets):
         m = c0.shape[0] // 2
         fx0, fmx0 = c0[0::2], c0[1::2]
         fx1, fmx1 = c1[0::2], c1[1::2]
-        tw = gl.mul(roots[:m], ci)
+        tw = gl.mul(roots_at(m), ci)
         d = (gl.mul(gl.sub(fx0, fmx0), tw), gl.mul(gl.sub(fx1, fmx1), tw))
         m0, m1 = ext2.scale(d, ch)
         c0 = gl.add(gl.add(fx0, fmx0), m0)
@@ -290,7 +307,7 @@ def _commit_layer(c0, c1, k: int, cap_size: int,
 
 
 def do_fri_device(h, transcript, schedule: list[int], lde_factor: int,
-                  cap_size: int, roots: torch.Tensor, hasher: str):
+                  cap_size: int, roots: torch.Tensor, hasher: str, mesh=None):
     """FRI over the DEEP polynomial h = (c0, c1) flat tensors: commit each
     layer, absorb its cap, fold by 2^k with the transcript's challenge, and
     interpolate the final layer on the host. ``roots`` is the bitreversed
@@ -301,15 +318,44 @@ def do_fri_device(h, transcript, schedule: list[int], lde_factor: int,
     Under a device transcript the caps and challenges stay on the device
     (the challenge's squaring chain is `sq_chain_dev`), and the final layer
     is left in ``result.final_layer`` = (c0, c1, coset, final degree) for
-    the prover to fetch in its handoff and pass to `finish_fri`."""
+    the prover to fetch in its handoff and pass to `finish_fri`.
+
+    With a ``mesh`` (`parallel.sharding.Mesh`), h is this rank's coset-major
+    blocks of the flat domain (the reference's sharded FRI trees,
+    boojum_tpu/prover/device_merkle.py:524-530): a layer is committed
+    sharded (`parallel.sharded_oracle.ShardedFlatOracle`) and folded on the
+    rank's blocks while each block holds a whole leaf; then the layer is
+    gathered and the rest runs replicated on every rank."""
     from .device_transcript import sq_chain_dev
 
     is_dev = getattr(transcript, "IS_DEVICE", False)
     result = FriResult()
     cur0, cur1 = h
+    # the rank's block of each coset while the layer is sharded, else None
+    blk = None if mesh is None else cur0.shape[0] // lde_factor
+    if mesh is not None:
+        from ..parallel.sharded_oracle import (commit_sharded_layer,
+                                               sharded_fold_roots)
+        from ..parallel.sharding import gather_blocks
+        blocks_roots = sharded_fold_roots(mesh, roots, lde_factor)
+
+        def gathered(c0, c1):  # the global order, on every rank
+            return tuple(gather_blocks(mesh, torch.stack([c0, c1]),
+                                       lde_factor))
+
+    def prefix_roots(m):
+        return roots[:m]
+
     coset_inv = pow(MULTIPLICATIVE_GENERATOR, ORDER - 2, ORDER)
     for stage, k in enumerate(schedule):
-        oracle = _commit_layer(cur0, cur1, k, cap_size, hasher)
+        if blk is not None and blk < 1 << k:
+            cur0, cur1 = gathered(cur0, cur1)
+            blk = None
+        if blk is None:
+            oracle = _commit_layer(cur0, cur1, k, cap_size, hasher)
+        else:
+            oracle = commit_sharded_layer(mesh, cur0, cur1, k, cap_size,
+                                          hasher, lde_factor)
         if is_dev:
             transcript.witness_merkle_tree_cap_dev(oracle.tree.layers[-1])
         else:
@@ -330,7 +376,13 @@ def do_fri_device(h, transcript, schedule: list[int], lde_factor: int,
         for _ in range(k):
             cosets.append(coset_inv)
             coset_inv = coset_inv * coset_inv % ORDER
-        cur0, cur1 = _fold(cur0, cur1, roots, chs, cosets)
+        cur0, cur1 = _fold(cur0, cur1,
+                           prefix_roots if blk is None else blocks_roots,
+                           chs, cosets)
+        if blk is not None:
+            blk >>= k
+    if blk is not None:
+        cur0, cur1 = gathered(cur0, cur1)
 
     final_degree = int(cur0.shape[0]) // lde_factor
     coset = int(npgl.inv(np.uint64(coset_inv)))

@@ -32,6 +32,18 @@ product over the constant columns; the reference's
 `device_prover.py:776-800` and host `prover.py:294-321`). Every tree
 hasher of the reference is ported.
 
+With a ``mesh`` (`parallel.sharding.make_mesh`), setup and prove run
+sharded over its process group, one process a device: every rank runs the
+whole prover on its rows (`parallel.sharding`'s layout), the oracles are
+`parallel.sharded_oracle.ShardedOracle`, the copy-permutation grand product
+is `distributed_grand_product`, the quotient's chunks come from one
+distributed iNTT, the evaluations at z are summed across the ranks, the
+FRI layers are sharded while each rank holds whole leaves, and the query
+phase's one fetch is answered by the rows' owners. As in the reference's
+mesh path (boojum_tpu/prover/device_prover.py:330, :667), the transcript
+and the witness columns are the host's, replicated on every rank. Every
+rank ends with the single-device proof's bytes.
+
 Setup and prove run under `torch.inference_mode()`: nothing is
 differentiated, and each of a prove's hundreds of thousands of ops skips
 autograd's bookkeeping, a host cost per op. The tensors they make may be
@@ -80,9 +92,23 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_supported(hasher: str):
+def _check_supported(hasher: str, mesh=None):
     if hasher not in TREE_HASHERS:
         raise ValueError("unknown tree hasher %r" % (hasher,))
+    if mesh is not None and hasher not in ("poseidon2", "poseidon"):
+        raise ValueError("a sharded prove hashes its trees with poseidon2 or "
+                         "poseidon, not %r" % (hasher,))
+
+
+def _mesh_device(device, mesh) -> torch.device:
+    """The device of a prover or a setup: the mesh's when there is one (and
+    ``device`` must be of its type), else ``device``."""
+    if mesh is None:
+        return resolve_device(device)
+    if torch.device(device).type != mesh.device.type:
+        raise ValueError("device %r does not match the mesh's %s"
+                         % (device, mesh.device))
+    return mesh.device
 
 
 def _selector_product(path, const_cols, size, dev):
@@ -97,25 +123,41 @@ def _selector_product(path, const_cols, size, dev):
 
 @torch.inference_mode()
 def create_device_setup(cs, setup_base, proof_config: ProofConfig,
-                        hasher: str = "poseidon2", device="cuda"):
+                        hasher: str = "poseidon2", device="cuda", mesh=None):
     """Setup oracle (sigmas ++ constants ++ table columns) on ``device`` and
-    the VK; the cap equals the reference's."""
-    dev = resolve_device(device)
-    _check_supported(hasher)
+    the VK; the cap equals the reference's. With a ``mesh`` the oracle is
+    sharded over it (the reference's device_prover.py:40-54)."""
+    dev = _mesh_device(device, mesh)
+    _check_supported(hasher, mesh)
     cols = np.concatenate([setup_base.copy_permutation_polys,
                            setup_base.constant_columns,
                            setup_base.lookup_tables_columns], axis=0)
     lde = max(proof_config.fri_lde_factor, setup_base.quotient_degree)
-    oracle = DeviceOracle(cols, lde, proof_config.merkle_tree_cap_size, hasher,
-                          tree_lde=proof_config.fri_lde_factor, device=dev)
+    if mesh is not None:
+        from ..parallel.sharded_oracle import ShardedOracle
+        oracle = ShardedOracle(mesh, cols, lde,
+                               proof_config.merkle_tree_cap_size, hasher,
+                               tree_lde=proof_config.fri_lde_factor)
+    else:
+        oracle = DeviceOracle(cols, lde, proof_config.merkle_tree_cap_size,
+                              hasher, tree_lde=proof_config.fri_lde_factor,
+                              device=dev)
     vk = make_vk(cs, setup_base, proof_config, oracle.get_cap())
     return ProvingArtifacts(setup_base=setup_base, setup_oracle=oracle, vk=vk)
 
 
 class DeviceProver:
     def __init__(self, cs, artifacts: ProvingArtifacts,
-                 proof_config: ProofConfig, device="cuda"):
-        self.device = resolve_device(device)
+                 proof_config: ProofConfig, device="cuda", mesh=None):
+        """``mesh``: a `parallel.sharding.Mesh` to prove sharded over (its
+        setup must come from `create_device_setup` on the same mesh), or
+        None for one device."""
+        self.device = _mesh_device(device, mesh)
+        self.mesh = mesh
+        if mesh is not None and \
+                getattr(artifacts.setup_oracle, "mesh", None) is not mesh:
+            raise ValueError("a sharded prover needs the setup of "
+                             "create_device_setup(..., mesh=) on its mesh")
         sb = artifacts.setup_base
         self.cs = cs
         self.artifacts = artifacts
@@ -135,16 +177,22 @@ class DeviceProver:
         the flat quotient domain (the setup's)."""
         if self._tables is None:
             n, qd, fri_lde, dev = self.n, self.qd, self.fri_lde, self.device
+            # a sharded prover's rows of each coset (all of them on one
+            # device); the FRI roots stay whole
+            own = slice(None) if self.mesh is None else self.mesh.blocks(n)
+            rows = n if self.mesh is None else n // self.mesh.size
             vi = dops.vanishing_inverse_per_coset(n, qd)
             self._tables = {
-                "x_lde": gl.from_u64(dops.x_poly_lde_host(n, qd), dev).reshape(-1),
-                "x_fri": gl.from_u64(dops.x_poly_lde_host(n, fri_lde), dev).reshape(-1),
-                "l1": dops.unnormalized_l1_lde(n, qd, dev).reshape(-1),
-                "vanish_inv": gl.from_u64(np.repeat(vi, n), dev),
+                "x_lde": gl.from_u64(dops.x_poly_lde_host(n, qd)[:, own],
+                                     dev).reshape(-1),
+                "x_fri": gl.from_u64(dops.x_poly_lde_host(n, fri_lde)[:, own],
+                                     dev).reshape(-1),
+                "l1": dops.unnormalized_l1_lde(n, qd, dev, own).reshape(-1),
+                "vanish_inv": gl.from_u64(np.repeat(vi, rows), dev),
                 "roots": gl.from_u64(_inverse_roots_bitreversed(fri_lde * n), dev),
                 # ω^i on the base domain
                 "x_vals": gl.from_u64(npgl.powers(gl.domain_generator(
-                    n.bit_length() - 1), n), dev),
+                    n.bit_length() - 1), n)[own], dev),
             }
             lp = self.cs.lookup_parameters
             if lp.lookup_is_allowed and not lp.is_specialized:
@@ -153,19 +201,22 @@ class DeviceProver:
                 first = sb.copy_permutation_polys.shape[0]
                 path = sb.selector_paths[0]  # the marker is evaluator 0
                 self._tables["sel_base"] = _selector_product(
-                    path, orc.lagrange.T[first:], n, dev)
+                    path, orc.lagrange.T[first:], rows, dev)
                 self._tables["sel_flat"] = _selector_product(
                     path, [orc.flat(first + k, qd) for k in range(len(path))],
-                    qd * n, dev)
+                    qd * rows, dev)
         return self._tables
 
     def witness_program(self):
         """The circuit's DeviceWitnessProgram, built at the first prove, or
-        None when the circuit does not support one."""
+        None when the circuit does not support one or the prover is
+        sharded (the reference's mesh path takes the host witness,
+        boojum_tpu/prover/device_prover.py:667)."""
         if self._witness_program is False:
             self._witness_program = (
                 DeviceWitnessProgram(self.cs, self.n, self.device)
-                if DeviceWitnessProgram.supported(self.cs) else None)
+                if self.mesh is None and DeviceWitnessProgram.supported(self.cs)
+                else None)
         return self._witness_program
 
     @torch.inference_mode()
@@ -179,14 +230,16 @@ class DeviceProver:
         needs an algebraic ``transcript_kind`` and an algebraic
         ``hasher`` (poseidon2 or poseidon); the byte transcripts and byte
         trees always run with the host transcript (True
-        raises ValueError there). ``verbose`` prints the
+        raises ValueError there). A sharded prover takes the host transcript,
+        replicated on every rank (True raises). ``verbose`` prints the
         stage split (each stage ends in a device sync); ``on_stage(label)``,
         if given, is called at the end of each stage of that split, after
         the sync and outside the stages' times (`chip_smoke.py` profiles
         each stage through it)."""
         cs = self.cs
         cfg = self.cfg
-        _check_supported(hasher)
+        mesh = self.mesh
+        _check_supported(hasher, mesh)
         dev = self.device
         ops = TorchOps(dev)
         sb = self.artifacts.setup_base
@@ -200,6 +253,8 @@ class DeviceProver:
         lp = cs.lookup_parameters
         omega = gl.domain_generator(log_n)
         tables = self._invariant_tables()
+        # the base-domain rows of this prover: all n, or the rank's block
+        rows = n if mesh is None else n // mesh.size
 
         self.last_stage_times = {}
         t_last = [time.time()]
@@ -220,11 +275,22 @@ class DeviceProver:
                 t_last[0] = time.time()
 
         def oracle(cols, lde, tree_lde=None, monomials=None):
+            if mesh is not None:
+                return ShardedOracle(mesh, cols, lde, cap_size, hasher,
+                                     tree_lde=tree_lde, monomials=monomials)
             return DeviceOracle(cols, lde, cap_size, hasher,
                                 tree_lde=tree_lde, monomials=monomials,
                                 device=dev)
 
-        eligible = (transcript_kind in ("poseidon", "poseidon2")
+        if mesh is not None:
+            from ..parallel.sharded_oracle import (
+                ShardedOracle, eval_monomial_sets_at as sharded_evals,
+                sharded_monomials_to_lde, sharded_quotient_monomials)
+            from ..parallel.sharding import distributed_grand_product
+            if device_transcript:
+                raise ValueError("a sharded prove takes the host transcript")
+        eligible = (mesh is None
+                    and transcript_kind in ("poseidon", "poseidon2")
                     and hasher in ("poseidon2", "poseidon"))
         if device_transcript and not eligible:
             raise ValueError("the device transcript needs the poseidon or "
@@ -311,8 +377,8 @@ class DeviceProver:
 
         chunk_ratios = []
         for start in range(0, num_var_polys, qd):
-            num = EV.const((1, 0), (n,), dev)
-            den = EV.const((1, 0), (n,), dev)
+            num = EV.const((1, 0), (rows,), dev)
+            den = EV.const((1, 0), (rows,), dev)
             for j in range(start, min(start + qd, num_var_polys)):
                 w = var_base[j]
                 num = num * EV(*affine(w, gl.mul(x_vals, non_res[j]), beta, gamma))
@@ -321,7 +387,8 @@ class DeviceProver:
         ratio = chunk_ratios[0]
         for r in chunk_ratios[1:]:
             ratio = ratio * r
-        z_vals = EV(*dops.grand_product_exclusive(ratio.a))
+        z_vals = EV(*(dops.grand_product_exclusive(ratio.a) if mesh is None
+                      else distributed_grand_product(mesh, ratio.a)))
         intermediates = []
         prev = z_vals
         for r in chunk_ratios[:-1]:
@@ -363,11 +430,11 @@ class DeviceProver:
                 cols = [var_base[base_off + rep * pw + i] for i in range(pw)]
                 tid = const_base[tid_cols[min(rep, len(tid_cols) - 1)]] \
                     if lp.id_in_constant else None
-                a_poly = aggregate(cols, tid, n).inv()
+                a_poly = aggregate(cols, tid, rows).inv()
                 if not lp.is_specialized:
                     a_poly = a_poly.mul_base(tables["sel_base"])
                 lookup_a_polys.append(a_poly)
-            agg_t = aggregate(list(table_base), None, n)
+            agg_t = aggregate(list(table_base), None, rows)
             lookup_b_polys.append(agg_t.inv().mul_base(mult_base[0]))
         stage("lookup A/B")
 
@@ -405,7 +472,7 @@ class DeviceProver:
                                      + total_general_terms:])
 
         # -- stage 6: quotient accumulation over the flat (qd·n) domain -------
-        size = qd * n
+        size = qd * rows
         acc = EV.const((0, 0), (size,), dev)
         x_lde = tables["x_lde"]
         var_flat = [witness_oracle.flat(i, qd) for i in range(num_var_polys)]
@@ -474,7 +541,8 @@ class DeviceProver:
 
         # z(x·ω): monomials c_k·ω^k, then its qd-coset LDE
         z_shift_mono = gl.mul(stage2_oracle.monomials[:, 0:2], x_vals[:, None])
-        zs = dops.monomials_to_lde(z_shift_mono, qd)  # (qd, n, 2)
+        zs = (dops.monomials_to_lde(z_shift_mono, qd) if mesh is None
+              else sharded_monomials_to_lde(mesh, z_shift_mono, qd))  # (qd, n, 2)
         z_shifted = EV(zs[:, :, 0].reshape(-1), zs[:, :, 1].reshape(-1))
         del zs
 
@@ -493,26 +561,37 @@ class DeviceProver:
 
         # -- stage 7: divide by the vanishing poly, coset iNTT, chunk ---------
         acc = acc.mul_base(tables["vanish_inv"])
-        g = gl.MULTIPLICATIVE_GENERATOR
-        q2 = torch.stack([acc.c0, acc.c1], dim=1)  # (qd·n, 2)
-        del acc
-        if (qd * n).bit_length() - 1 >= 14:
-            q_mono = ntt.coset_intt_fourstep_cols(q2, g)
+        if mesh is None:
+            g = gl.MULTIPLICATIVE_GENERATOR
+            q2 = torch.stack([acc.c0, acc.c1], dim=1)  # (qd·n, 2)
+            if (qd * n).bit_length() - 1 >= 14:
+                q_mono = ntt.coset_intt_fourstep_cols(q2, g)
+            else:
+                q_mono = ntt.coset_intt_cols(
+                    q2, g, ntt.get_plan((qd * n).bit_length() - 1))
+            del q2
+            # chunk k of component c -> monomial column 2k + c, (n, 2·qd)
+            quotient_monomials = q_mono.reshape(qd, n, 2).permute(1, 0, 2) \
+                .reshape(n, 2 * qd).contiguous()
+            del q_mono
         else:
-            q_mono = ntt.coset_intt_cols(q2, g, ntt.get_plan((qd * n).bit_length() - 1))
+            quotient_monomials = sharded_quotient_monomials(mesh, acc.a, qd)
+        del acc
         # the quotient's top coefficient is zero for a satisfied circuit; it
         # is checked on the host at the next fetch (the evaluations', or the
-        # device transcript's handoff), not with a wait of its own
-        q_top = q_mono[-1:].clone() if cs.config.runtime_asserts else None
+        # device transcript's handoff), not with a wait of its own. Under a
+        # mesh the last rank holds it, and the evaluations' sum brings it
+        # to every rank.
+        q_top = None
+        if cs.config.runtime_asserts:
+            q_top = quotient_monomials[-1:, -2:].clone()
+            if mesh is not None and mesh.rank != mesh.size - 1:
+                q_top.zero_()
 
         def check_quotient_top(top):
             if top[0] or top[1]:
                 cs.check_if_satisfied(verbose=True)
                 raise AssertionError("unsatisfied circuit (see row report above)")
-        # chunk k of component c -> monomial column 2k + c, (n, 2·qd)
-        quotient_monomials = q_mono.reshape(qd, n, 2).permute(1, 0, 2) \
-            .reshape(n, 2 * qd).contiguous()
-        del q_mono, q2
         quotient_oracle = oracle(None, fri_lde, monomials=quotient_monomials)
         absorb_cap(quotient_oracle)
         stage("quotient oracle")
@@ -530,9 +609,20 @@ class DeviceProver:
         s_mono = setup_oracle.monomials
         st2_mono = stage2_oracle.monomials
         q_mono_t = quotient_oracle.monomials
-        (w_z, s_z, st2_z, q_z, st2_zw) = eval_monomial_sets_at([
-            (w_mono, z_pt), (s_mono, z_pt), (st2_mono, z_pt), (q_mono_t, z_pt),
-            (st2_mono[:, 0:2], zw)])
+        sets = [(w_mono, z_pt), (s_mono, z_pt), (st2_mono, z_pt),
+                (q_mono_t, z_pt), (st2_mono[:, 0:2], zw)]
+        row0 = st2_mono[0]  # the constant coefficients
+        if mesh is None:
+            (w_z, s_z, st2_z, q_z, st2_zw) = eval_monomial_sets_at(sets)
+        else:
+            # rank 0 holds the constant coefficients and the last rank the
+            # quotient's top one: both ride the sum of the evaluations
+            extra = [row0 * int(mesh.rank == 0)]
+            extra += [] if q_top is None else [q_top.reshape(-1)]
+            (w_z, s_z, st2_z, q_z, st2_zw, row0, *top) = sharded_evals(
+                mesh, sets, extra)
+            if q_top is not None:
+                q_top = top[0].reshape(1, 2)
 
         def base_range(vals, lo, hi):
             """Base polys lo..hi evaluated at an ext point."""
@@ -570,7 +660,6 @@ class DeviceProver:
         values = [table(parts), table([ext_range(st2_zw, 0, 1)])]
         if lp.lookup_is_allowed:
             # values at 0 of A_i and B: the constant coefficients
-            row0 = st2_mono[0]
             values.append(torch.stack([row0[a_off:b_off + 2:2],
                                        row0[a_off + 1:b_off + 2:2]], dim=1))
         if use_dev_ts:
@@ -601,7 +690,7 @@ class DeviceProver:
             sum(len(s) for s in pub_tuples.values())
         ch_iter = iter(pow_table(deep, total_ch))
 
-        fsize = fri_lde * n
+        fsize = fri_lde * rows
         x_fri = tables["x_fri"]
         h = EV.const((0, 0), (fsize,), dev)
 
@@ -658,7 +747,7 @@ class DeviceProver:
             cfg.security_level, cap_size, cfg.pow_bits,
             fri_lde.bit_length() - 1, log_n)
         fri_result = do_fri_device(h.a, transcript, schedule, fri_lde,
-                                   cap_size, tables["roots"], hasher)
+                                   cap_size, tables["roots"], hasher, mesh)
         del h
         fri_oracles = [fri_result.base_oracle] + fri_result.intermediate_oracles
         if use_dev_ts:
@@ -707,7 +796,7 @@ class DeviceProver:
         flat_idx = [c * n + i for (c, i) in picks]
         # every gather of the query phase (leaf rows, Merkle paths, FRI
         # chunks) comes to the host in ONE transfer
-        coll = FetchCollector()
+        coll = FetchCollector(mesh)
         main = [witness_oracle, stage2_oracle, quotient_oracle, setup_oracle]
         rows = [o.query_many(flat_idx, collector=coll) for o in main]
         for o in main:

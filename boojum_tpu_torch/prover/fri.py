@@ -1,4 +1,4 @@
-# Copied from boojum_tpu/prover/fri.py (schedule, tables, final interpolation).
+# Copied from boojum_tpu/prover/fri.py (schedule, tables, host folds, final interpolation).
 """FRI: schedule, folding, oracles, final monomials.
 
 Reference behavior: src/cs/implementations/fri/mod.rs (do_fri :49,
@@ -9,15 +9,16 @@ value layout is the bitreversed enumeration of the full domain over
 g·<ω_{lde·n}>, so adjacent pairs are (f(x), f(-x)) and one inverse-twiddle
 table serves every fold (its prefix is the table of the squared domain).
 
-The folds themselves run on the device (`device_merkle.do_fri_device`);
-this module keeps the schedule and the host-side tables.
+`DeviceProver`'s folds run on the device (`device_merkle.do_fri_device`);
+`do_fri` here is the host `prover.prove`'s: host folds, each layer's tree
+built on a torch device (`oracles.FlatOracle`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..field.goldilocks import ORDER, domain_generator
+from ..field.goldilocks import MULTIPLICATIVE_GENERATOR, ORDER, domain_generator
 from ..ntt import ntt
 from ..utils import npgl
 
@@ -60,6 +61,31 @@ def compute_fri_schedule(security_bits: int, cap_size: int, pow_bits: int,
     return new_pow_bits, num_queries, schedule, 1 << degree
 
 
+# -- host ext helpers -------------------------------------------------------
+
+_NR = np.uint64(7)
+
+
+def _ext_mul(a0, a1, b0, b1):
+    v0 = npgl.mul(a0, b0)
+    v1 = npgl.mul(a1, b1)
+    c0 = npgl.add(v0, npgl.mul(v1, _NR))
+    t = npgl.mul(npgl.add(a0, a1), npgl.add(b0, b1))
+    c1 = npgl.sub(npgl.sub(t, v0), v1)
+    return c0, c1
+
+
+def _fold_step(c0, c1, roots_inv, coset_inv, ch0, ch1):
+    """One fold-by-2 over flat bitreversed arrays."""
+    fx0, fmx0 = c0[0::2], c0[1::2]
+    fx1, fmx1 = c1[0::2], c1[1::2]
+    d0 = npgl.mul(npgl.mul(npgl.sub(fx0, fmx0), roots_inv), coset_inv)
+    d1 = npgl.mul(npgl.mul(npgl.sub(fx1, fmx1), roots_inv), coset_inv)
+    m0, m1 = _ext_mul(d0, d1, np.uint64(ch0), np.uint64(ch1))
+    return (npgl.add(npgl.add(fx0, fmx0), m0),
+            npgl.add(npgl.add(fx1, fmx1), m1))
+
+
 def _inverse_roots_bitreversed(full_size: int) -> np.ndarray:
     """roots[i] = ω_full^{-bitrev_{full/2}(i)}, length full/2."""
     log_full = full_size.bit_length() - 1
@@ -74,6 +100,7 @@ class FriResult:
     def __init__(self):
         self.base_oracle = None
         self.intermediate_oracles = []
+        self.intermediate_sources = []  # host folds: list[(c0 np, c1 np)]
         self.monomial_forms = ([], [])
 
 
@@ -101,3 +128,56 @@ def interpolate_final_host(vals_bitrev: np.ndarray, coset: int) -> list[int]:
         out.append(acc * m_inv % ORDER * cj % ORDER)
         cj = cj * coset_inv % ORDER
     return out
+
+
+def do_fri(h_c0: np.ndarray, h_c1: np.ndarray, transcript, schedule: list[int],
+           lde_factor: int, cap_size: int, hasher: str,
+           device="cuda") -> FriResult:
+    """FRI on the host over the DEEP polynomial's flat host arrays; each
+    layer's tree is built on ``device``."""
+    from .oracles import FlatOracle
+
+    full_size = h_c0.shape[0]
+    result = FriResult()
+
+    result.base_oracle = FlatOracle([h_c0, h_c1], 1 << schedule[0],
+                                    cap_size, hasher, device)
+    transcript.witness_merkle_tree_cap(result.base_oracle.get_cap())
+
+    roots = _inverse_roots_bitreversed(full_size)
+    coset_inv = np.uint64(pow(MULTIPLICATIVE_GENERATOR, ORDER - 2, ORDER))
+
+    cur_c0, cur_c1 = h_c0, h_c1
+    for stage, k in enumerate(schedule):
+        if stage > 0:
+            oracle = FlatOracle([cur_c0, cur_c1], 1 << k, cap_size, hasher,
+                                device)
+            transcript.witness_merkle_tree_cap(oracle.get_cap())
+            result.intermediate_oracles.append(oracle)
+        ch0 = transcript.get_challenge()
+        ch1 = transcript.get_challenge()
+        c = (ch0, ch1)
+        for _ in range(k):
+            m = cur_c0.shape[0] // 2
+            cur_c0, cur_c1 = _fold_step(cur_c0, cur_c1, roots[:m],
+                                        coset_inv, c[0], c[1])
+            coset_inv = npgl.mul(coset_inv, coset_inv)
+            s0, s1 = _ext_mul(np.uint64(c[0]), np.uint64(c[1]),
+                              np.uint64(c[0]), np.uint64(c[1]))
+            c = (int(s0), int(s1))
+        result.intermediate_sources.append((cur_c0, cur_c1))
+
+    # final interpolation: bitreversed flat values of a low-degree poly over
+    # coset (coset_inv)^-1 of size m
+    m = cur_c0.shape[0]
+    final_degree = m // lde_factor
+    coset = int(npgl.inv(coset_inv))
+    mono_c0 = np.asarray(interpolate_final_host(cur_c0, coset), np.uint64)
+    mono_c1 = np.asarray(interpolate_final_host(cur_c1, coset), np.uint64)
+    assert not mono_c0[final_degree:].any(), "FRI final poly degree too high"
+    assert not mono_c1[final_degree:].any(), "FRI final poly degree too high"
+    transcript.witness_field_elements([int(x) for x in mono_c0[:final_degree]])
+    transcript.witness_field_elements([int(x) for x in mono_c1[:final_degree]])
+    result.monomial_forms = ([int(x) for x in mono_c0[:final_degree]],
+                             [int(x) for x in mono_c1[:final_degree]])
+    return result

@@ -52,6 +52,17 @@ after:
   summed bound of its layers, and the shapes of a Keccak-256 circuit prove,
   of a recursion outer prove and of the lookup-heavy circuit's proves, each
   shape checked and timed once);
+- the sharded flagship: the same circuit, base setup and configuration
+  proved through `boojum_tpu_torch/parallel/`: an NCCL process group of
+  one rank made in this process (a FileStore in a temporary directory,
+  the group bound to cuda:0, destroyed after the phase),
+  `create_device_setup(..., mesh=make_mesh())` (its cap the single-device
+  setup's) and `DeviceProver(..., mesh=)`, one cold and one warm prove,
+  each held to `flagship_proof_digest.json`, with its synchronizing calls
+  counted (a warm prove at most 12: the sharded prove takes the host
+  transcript and the host witness, as the reference's mesh path does) and
+  its collectives by kind printed; it must launch `ntt_stage` and the
+  Poseidon2 leaf and node entries, and no plain version;
 - the Poseidon-tree flagship: the same circuit and base setup, Poseidon
   transcript, classic-Poseidon trees (tree hasher "poseidon", entries
   `poseidon_leaf_hashes` / `poseidon_node_layer`), LDE 8, cap 16: its
@@ -77,9 +88,10 @@ after:
   then the per-circuit path `circuit_path`: setup, one cold and one warm
   prove, each proof's digest equal to
   `boojum_tpu_torch/data/keccak256_1kB_proof_digest.json` and its
-  synchronizing calls counted (a warm prove at most 3), one synced prove
-  for its stage split and one with its torch ops counted by stage
-  (`scripts/torch_profile_flagship.py --config keccak256` profiles it).
+  synchronizing calls counted (a warm prove at most 3), and one with its
+  torch ops counted by stage, whose synced stages also give the stage
+  split (`scripts/torch_profile_flagship.py --config keccak256` profiles
+  it).
   The proves must take the device witness program
   (`materialize_witness_columns` never called) and launch `ntt_stage`, the
   Poseidon2 leaf and node entries and `poseidon_sponge`, and no plain
@@ -91,8 +103,8 @@ after:
   witness path, as in the reference, and held to the digests in
   `boojum_tpu_torch/data/recursion_outer_proof_digest.json`: the outer
   circuit's synthesis and `check_if_satisfied`, its setup, a cold prove
-  with its torch ops counted by stage, a warm prove timed and a warm prove
-  counted (`scripts/torch_profile_flagship.py --config recursion_outer`
+  with its torch ops counted by stage and a warm prove timed
+  (`scripts/torch_profile_flagship.py --config recursion_outer`
   profiles it; `torch.profiler` takes minutes on a prove of a million
   launches); the outer circuit over an inner proof with one value at z
   bumped must be unsatisfied;
@@ -106,17 +118,25 @@ after:
   held to
   `boojum_tpu_torch/data/lookup_heavy_proof_digest.json` or
   `lookup_heavy_general_proof_digest.json` and with its synchronizing calls
-  counted (a warm prove at most 3), one synced prove for its stage split,
-  one with its torch ops counted by stage, and the peak device memory
+  counted (a warm prove at most 3), one with its torch ops counted by
+  stage (and its stage split), and the peak device memory
   (`scripts/torch_profile_flagship.py --config lookup_heavy` or
   `lookup_heavy_general` profiles a prove); every prove must take the
   device witness program;
+- the host prove: the port's host `prove` (host numpy stages, its LDEs,
+  NTTs and trees on the card) and `create_setup_and_vk` on the recursion
+  configuration's inner circuit, held to its digest in
+  `recursion_outer_proof_digest.json` (the flagship's host prove takes over
+  a minute; `scripts/torch_profile_flagship.py --prover host` times it);
 - the verifier: the port's `verify` (host code, no launch) accepts the
-  Poseidon, Poseidon-tree, Blake2s and Keccak-256 flagship proofs, the
+  Poseidon, sharded, Poseidon-tree, Blake2s and Keccak-256 flagship
+  proofs, the host prove's proof, the
   Keccak-256 circuit proof, the recursion configuration's inner and outer
   proofs and the lookup-heavy circuit's two proofs, each timed, and rejects
   the Blake2s and the Poseidon-tree proofs with one witness leaf element
-  flipped;
+  flipped, in four spawned processes that run while the card checks and
+  times each kernel at every shape the proves gave it and runs the two
+  paths below (each worker's launches must stay 0);
 - the standalone NTT: runs `pallas_ntt.ntt_any` at (2^24, 8), whose output
   must equal the digest in `boojum_tpu_torch/data/ntt_2e24_digest.json`
   (made by `scripts/torch_reference_ntt_digest.py`) and the radix-256 route
@@ -137,6 +157,7 @@ CUDA or nvidia-smi is unavailable or any phase fails.
 """
 
 import collections
+import contextlib
 import hashlib
 import json
 import os
@@ -171,6 +192,9 @@ PROFILE_ROUNDS = 1
 # handoff, the query phase's one fetch and the closing synchronize; the
 # host transcript adds its cap reads, the evaluations and the final layer
 MAX_SYNCS = {"device": 3, "host": 12}
+# warm proves of the sharded flagship (world size 1 under NCCL) after its
+# cold prove; it takes the host transcript, so MAX_SYNCS["host"] holds
+SHARDED_WARM_PROVES = 1
 K6_REPLACES = "boojum_tpu/prover/device_transcript.py:87"
 # the classic-Poseidon tree entries of csrc/poseidon.cu replace the batched
 # jnp sponge behind the reference's host AlgebraicMerkleTree
@@ -1628,6 +1652,172 @@ def poseidon_tree_flagship(ctx):
     return counts, dict(setup=setup_shapes, prove=shapes), (art.vk, proof)
 
 
+def nccl_world():
+    """An NCCL process group of one rank in this process, bound to cuda:0:
+    its store a FileStore in a fresh temporary directory (no network).
+    Returns that directory, to be removed with the group."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    store = dist.FileStore(os.path.join(tmp, "store"), 1)
+    try:
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+    except TypeError:  # a torch without device_id
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    return tmp
+
+
+def sharded_flagship(ctx):
+    """The flagship proved sharded (`parallel/`): the circuit, base setup and
+    configuration of `flagship`, `create_device_setup(..., mesh=)` and
+    `DeviceProver(..., mesh=make_mesh())` over an NCCL group of one rank
+    made in this process (every collective called, at world size 1), one
+    cold and SHARDED_WARM_PROVES warm proves. The setup's cap must be the
+    single-device setup's, every proof's digest the flagship's
+    (`flagship_proof_digest.json`), a warm prove's synchronizing calls at
+    most MAX_SYNCS["host"] (the sharded prove takes the host transcript, as
+    the reference's mesh path does); it prints the collectives of a prove by
+    kind and the launches of each kernel, and no plain version may run.
+    The group is destroyed at the end, so later phases run without it.
+    Returns the counts of the path and the VK and last proof."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from boojum_tpu_torch.parallel import make_mesh, sharding
+    from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
+                                         create_device_setup)
+
+    name = "sharded flagship"
+    ref = ctx["ref"]
+    sha = ref["proof_json_sha256"]
+    cfg = ProofConfig(**ref["config"])
+    store_dir = nccl_world()
+    try:
+        mesh = make_mesh()
+        log("%s: NCCL group of %d rank(s), device %s, backend %s"
+            % (name, mesh.size, mesh.device, dist.get_backend()))
+        reset_counts()  # counts of this path only
+        sharding.COLLECTIVES.clear()
+        t0 = time.time()
+        art = create_device_setup(ctx["cs"], ctx["sb"], cfg, ref["hasher"],
+                                  mesh=mesh)
+        prover = DeviceProver(ctx["cs"], art, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        log("%s: create_device_setup %.2f s, %s collectives %s"
+            % (name, time.time() - t0, mesh.device,
+               json.dumps(dict(sharding.COLLECTIVES))))
+        if art.vk.setup_merkle_tree_cap != ctx["vk"].setup_merkle_tree_cap:
+            raise AssertionError("the sharded setup's cap differs from the "
+                                 "single-device setup's")
+
+        def prove():
+            t = time.time()
+            proof = prover.prove(ref["transcript"], ref["hasher"])
+            torch.cuda.synchronize()
+            return proof, time.time() - t
+
+        times = []
+        for i in range(1 + SHARDED_WARM_PROVES):
+            before = read_counts()
+            colls = sharding.COLLECTIVES.copy()
+            sites, (proof, t) = count_syncs(prove)
+            after = read_counts()
+            times.append(t)
+            syncs = sum(sites.values())
+            log("%s %s prove: %.4f s, proof_to_json sha256 %s (reference "
+                "%s); synchronizing calls %d, by source line: %s; "
+                "collectives by kind: %s; launches: %s"
+                % (name, "warm" if i else "cold", t, proof_digest(proof), sha,
+                   syncs, json.dumps(dict(sites.most_common())),
+                   json.dumps(dict(sharding.COLLECTIVES - colls)),
+                   json.dumps({k: after[k] - before[k] for k in after
+                               if after[k] - before[k]})))
+            if proof_digest(proof) != sha:
+                raise AssertionError("a %s proof differs from the reference"
+                                     % name)
+            if i > 0 and syncs > MAX_SYNCS["host"]:
+                raise AssertionError("a warm %s prove made %d synchronizing "
+                                     "calls, more than %d"
+                                     % (name, syncs, MAX_SYNCS["host"]))
+        counts = read_counts()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    log("%s: cold prove %.4f s, warm %s s; launches (setup + %d proves): "
+        "ntt_stage %d, ntt_small %d, poseidon2_leaf_hashes %d, "
+        "poseidon2_node_layer %d; all: %s"
+        % (name, times[0], ", ".join("%.4f" % t for t in times[1:]),
+           1 + SHARDED_WARM_PROVES, counts["ntt_stage"], counts["ntt_small"],
+           counts["poseidon2_leaf_hashes"], counts["poseidon2_node_layer"],
+           json.dumps(counts)))
+    for kernel in ("ntt_stage", "poseidon2_leaf_hashes",
+                   "poseidon2_node_layer"):
+        if counts[kernel] <= 0:
+            raise AssertionError("%s never launched on the %s path"
+                                 % (kernel, name))
+    if counts["plain_on_cuda"]:
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    return counts, (art.vk, proof)
+
+
+def host_prove_path():
+    """The port's host `prove` (host numpy stages; LDEs, NTTs and trees on
+    the card): `create_setup_and_vk` and one prove of the recursion
+    configuration's inner circuit, held to its digest in
+    `recursion_outer_proof_digest.json`, timed, with its kernel launches.
+    No plain version may run. (The flagship's host prove takes over a
+    minute: `scripts/torch_profile_flagship.py --prover host` times it.)
+    Returns the counts and the (VK, proof, transcript, hasher) of the
+    proof."""
+    import numpy as np
+    import torch
+    from boojum_tpu_torch.cs.setup import create_base_setup
+    from boojum_tpu_torch.gadgets.recursion.circuits import \
+        build_inner_circuit
+    from boojum_tpu_torch.prover import (ProofConfig, create_setup_and_vk,
+                                         prove)
+
+    rec = load_digest("recursion_outer_proof_digest.json")["inner"]
+    inner = build_inner_circuit(np.random.default_rng(rec["seed"]))
+    cases = [("recursion inner", inner, create_base_setup(inner), rec)]
+    reset_counts()  # counts of this path only
+    proofs = {}
+    for label, cs, sb, ref in cases:
+        before = read_counts()
+        cfg = ProofConfig(**ref["config"])
+        t0 = time.time()
+        art = create_setup_and_vk(cs, sb, cfg, ref["hasher"], device="cuda")
+        torch.cuda.synchronize()
+        t_setup = time.time() - t0
+        t0 = time.time()
+        proof = prove(cs, art, cfg, ref["transcript"], ref["hasher"],
+                      device="cuda")
+        torch.cuda.synchronize()
+        t = time.time() - t0
+        after = read_counts()
+        log("host prove, %s (domain %d): create_setup_and_vk %.2f s, prove "
+            "%.3f s, proof_to_json sha256 %s (reference %s); launches: %s"
+            % (label, sb.domain_size, t_setup, t, proof_digest(proof),
+               ref["proof_json_sha256"],
+               json.dumps({k: after[k] - before[k] for k in after
+                           if after[k] - before[k]})))
+        if proof_digest(proof) != ref["proof_json_sha256"]:
+            raise AssertionError("the host prove of the %s differs from the "
+                                 "reference" % label)
+        proofs["host prove " + label] = (art.vk, proof, ref["transcript"],
+                                         ref["hasher"])
+    counts = read_counts()
+    for kernel in ("poseidon2_leaf_hashes", "poseidon2_node_layer"):
+        if counts[kernel] <= 0:
+            raise AssertionError("%s never launched on the host prove path"
+                                 % kernel)
+    if counts["plain_on_cuda"]:
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    return counts, proofs
+
+
 def byte_flagship(ctx, kind, warm):
     """The reference's non-recursive configuration on the flagship circuit
     (the circuit and base setup of `flagship`): the ``kind`` transcript
@@ -1830,8 +2020,9 @@ def circuit_path(name, cs, ref, warm):
     ``cs``, one cold and ``warm`` warm proves with the default device
     transcript, each timed, held to the digest of ``ref`` and with its
     synchronizing calls counted (a warm prove at most MAX_SYNCS["device"]),
-    then one synced prove for its stage split and one with its torch ops
-    counted by stage; peak device memory. Every prove must take the device
+    then one prove with its torch ops counted by stage (its stages end in
+    syncs, so it also gives the stage split, with the counting's own cost
+    in each stage's wall); peak device memory. Every prove must take the device
     witness program (`materialize_witness_columns` never called) and launch
     `ntt_stage`, the Poseidon2 leaf and node entries and `poseidon_sponge`,
     and no plain version. Returns the counts of the path, the launches by
@@ -1880,12 +2071,6 @@ def circuit_path(name, cs, ref, warm):
             raise AssertionError("a warm %s prove made %d synchronizing "
                                  "calls, more than %d"
                                  % (name, syncs, MAX_SYNCS["device"]))
-    synced = prover.prove(ref["transcript"], ref["hasher"],
-                          on_stage=lambda label: None)
-    if proof_digest(synced) != sha:
-        raise AssertionError("the synced %s proof differs" % name)
-    log("%s synced prove, wall by stage: %s" % (name, json.dumps(
-        {k: round(v, 4) for k, v in prover.last_stage_times.items()})))
     counted, rows = op_counted_prove(lambda on_stage: prover.prove(
         ref["transcript"], ref["hasher"], on_stage=on_stage))
     if proof_digest(counted) != sha:
@@ -1896,7 +2081,7 @@ def circuit_path(name, cs, ref, warm):
     log("%s: cold prove %.4f s, warm %s s; peak device memory %.2f GB; "
         "host witness calls %d; launches (setup + %d proves): %s"
         % (name, times[0], ", ".join("%.4f" % t for t in times[1:]),
-           torch.cuda.max_memory_allocated() / 1e9, host_witness, 3 + warm,
+           torch.cuda.max_memory_allocated() / 1e9, host_witness, 2 + warm,
            json.dumps(counts)))
     for kernel in ("ntt_stage", "poseidon2_leaf_hashes",
                    "poseidon2_node_layer", "poseidon_sponge"):
@@ -1939,8 +2124,8 @@ def recursion_outer():
     8, security 100) made on the card and held to its digest, the outer
     circuit that verifies it (132 copy columns, degree 8, flattened Poseidon
     and Poseidon2 gates) synthesized and checked, its setup, then a cold
-    prove with its torch ops counted by stage, a warm prove timed and a warm
-    prove counted, each held to the outer digest of
+    prove with its torch ops counted by stage and a warm prove timed, each
+    held to the outer digest of
     `recursion_outer_proof_digest.json`; and the outer circuit over the
     inner proof with one value at z bumped must be unsatisfied. Both circuits take the host witness path,
     as in the reference. Returns the counts of the path, the launches by
@@ -2011,13 +2196,11 @@ def recursion_outer():
                              oprover.last_stage_times), shapes
 
     cold_ops, _ = counted("cold")
-    outer_proof, times, _ = timed_proves("recursion outer (warm)", oprover,
-                                         oref, sha, 1)
-    warm_ops, shapes = counted("warm")
-    log("recursion outer: torch ops a prove, cold %d, warm %d; warm prove "
-        "%.4f s; peak device memory %.2f GB" % (
-            cold_ops, warm_ops, times[0],
-            torch.cuda.max_memory_allocated() / 1e9))
+    outer_proof, times, shapes = timed_proves("recursion outer (warm)",
+                                              oprover, oref, sha, 1)
+    log("recursion outer: torch ops of the cold prove %d; warm prove %.4f s; "
+        "peak device memory %.2f GB" % (
+            cold_ops, times[0], torch.cuda.max_memory_allocated() / 1e9))
 
     bad = copy.deepcopy(inner_proof)
     v = list(bad.values_at_z[2])
@@ -2033,7 +2216,7 @@ def recursion_outer():
 
     counts = read_counts()
     log("recursion path launches (setups + %d proves): %s; host witness "
-        "path calls %d" % (4, json.dumps(counts),
+        "path calls %d" % (3, json.dumps(counts),
                            host_witness_calls() - host_witness))
     for name in ("poseidon2_leaf_hashes", "poseidon2_node_layer",
                  "poseidon_sponge"):
@@ -2084,39 +2267,69 @@ def lookup_heavy():
     return out
 
 
-def verify_path(proofs, flips=("blake2s", "poseidon trees")):
-    """The port's `verify` (host code on Python ints) on each proof,
-    timed, and on the ``flips`` proofs with one witness leaf element
-    flipped, which it must reject. It must launch no kernel."""
-    import copy
+def _verify_one(job):
+    """One verification of `verify_in_background`, in a spawned worker: the
+    port's `verify` on a proof (a pickled copy), with one witness leaf
+    element flipped if ``flip``. Returns whether it accepted, its seconds,
+    the failure it reports, and the worker's kernel launches."""
+    (vk, proof, kind, hasher), flip = job
     from boojum_tpu_torch.verifier import verifier
-
+    if flip:
+        proof.queries_per_fri_repetition[0].witness_query.leaf_elements[0] ^= 1
     reset_counts()
-    secs = {}
-    for name, (vk, proof, kind, hasher) in proofs.items():
-        t = time.time()
-        ok = verifier.verify(vk, proof, kind, hasher)
-        secs[name] = round(time.time() - t, 3)
-        log("verify %s proof (%s transcript, %s trees): %s in %.3f s%s" % (
-            name, kind, hasher, ok, secs[name],
-            "" if ok else " (%s)" % verifier.last_failure()))
-        if not ok:
-            raise AssertionError("the port's verify rejected the %s proof"
-                                 % name)
-    for name in flips:
-        vk, proof, kind, hasher = proofs[name]
-        bad = copy.deepcopy(proof)
-        bad.queries_per_fri_repetition[0].witness_query.leaf_elements[0] ^= 1
-        if verifier.verify(vk, bad, kind, hasher) is not False:
-            raise AssertionError("the port's verify accepted the %s proof "
-                                 "with a flipped leaf element" % name)
-        log("verify: the %s proof with a flipped witness leaf element is "
-            "rejected (%s)" % (name, verifier.last_failure()))
-    counts = read_counts()
-    if any(v for k, v in counts.items()):
-        raise AssertionError("verify launched kernels: %s"
-                             % json.dumps(counts))
-    return secs
+    t = time.time()
+    ok = verifier.verify(vk, proof, kind, hasher)
+    return ok, time.time() - t, verifier.last_failure(), read_counts()
+
+
+@contextlib.contextmanager
+def verify_in_background(proofs, flips=("blake2s", "poseidon trees"),
+                         workers=4):
+    """The port's `verify` (host code on Python ints) on each proof, and on
+    the ``flips`` proofs with one witness leaf element flipped, which it
+    must reject, in a pool of ``workers`` spawned processes that start at
+    once, so that the card's phases run meanwhile. Yields a function that
+    waits for them, logs each (timed in its worker), fails if a proof is
+    rejected, a flipped one accepted or a worker launched a kernel, and
+    returns the seconds by proof. The pool is shut down on leaving."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(workers,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        jobs = [(name, False) for name in proofs]
+        jobs += [(name, True) for name in flips]
+        futures = [pool.submit(_verify_one, (proofs[name], flip))
+                   for name, flip in jobs]
+
+        def results():
+            secs = {}
+            for (name, flip), fut in zip(jobs, futures):
+                ok, sec, failure, counts = fut.result()
+                kind, hasher = proofs[name][2:]
+                if any(counts.values()):
+                    raise AssertionError("verify launched kernels: %s"
+                                         % json.dumps(counts))
+                if flip:
+                    if ok is not False:
+                        raise AssertionError(
+                            "the port's verify accepted the %s proof with a "
+                            "flipped leaf element" % name)
+                    log("verify: the %s proof with a flipped witness leaf "
+                        "element is rejected (%s)" % (name, failure))
+                    continue
+                secs[name] = round(sec, 3)
+                log("verify %s proof (%s transcript, %s trees): %s in %.3f "
+                    "s%s" % (name, kind, hasher, ok, secs[name],
+                             "" if ok else " (%s)" % failure))
+                if not ok:
+                    raise AssertionError("the port's verify rejected the %s "
+                                         "proof" % name)
+            return secs
+        yield results
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
 def permute_path(rng):
@@ -2189,6 +2402,8 @@ def main():
 
     counts, k1_shapes, p2_shapes, k5_blocks, k6_shapes, ctx = flagship()
     phase("poseidon flagship")
+    sh_counts, (sh_vk, sh_proof) = sharded_flagship(ctx)
+    phase("sharded flagship")
     pt_counts, pt_shapes, (pt_vk, pt_proof) = poseidon_tree_flagship(ctx)
     phase("poseidon-tree flagship")
     b2s_counts, b2s_shapes, b2s_proof, b2s_vk = byte_flagship(
@@ -2203,42 +2418,51 @@ def main():
     phase("recursion outer")
     lookups = lookup_heavy()
     phase("lookup heavy")
-    verify_secs = verify_path({
+    host_counts, host_proofs = host_prove_path()
+    phase("host prove")
+    # the verifications run in spawned processes while the card's last
+    # phases run
+    with verify_in_background({
         "poseidon": (ctx["vk"], ctx["proof"], ctx["ref"]["transcript"],
                      ctx["ref"]["hasher"]),
         "poseidon trees": (pt_vk, pt_proof, "poseidon", "poseidon"),
+        "sharded flagship": (sh_vk, sh_proof, ctx["ref"]["transcript"],
+                             ctx["ref"]["hasher"]),
+        **host_proofs,
         "blake2s": (b2s_vk, b2s_proof, "blake2s", "blake2s"),
         "keccak256": (kec_vk, kec_proof, "keccak256", "keccak256"),
         "keccak256 circuit": (kcc_vk, kcc_proof, "poseidon", "poseidon2"),
         "recursion inner": (*rec_proofs["inner"], "poseidon", "poseidon2"),
         "recursion outer": (*rec_proofs["outer"], "poseidon", "poseidon2"),
         **{"lookup heavy " + v: (*lk[2], "poseidon", "poseidon2")
-           for v, lk in lookups.items()}})
-    phase("verify")
-    memo = {}
-    costs, prove_errs = per_prove_costs(
-        rng, "flagship prove", k1_shapes, p2_shapes, k5_blocks, k6_shapes,
-        b2s_shapes + kec_shapes, memo)
-    path_costs = {"flagship prove": costs}
-    new_paths = [("poseidon-tree flagship " + k, v)
-                 for k, v in pt_shapes.items()]
-    new_paths += [("keccak256 circuit " + k, v) for k, v in kcc_shapes.items()]
-    new_paths += [("recursion " + k, v) for k, v in rec_shapes.items()]
-    new_paths += [("lookup heavy %s %s" % (variant, k), v)
-                  for variant, lk in lookups.items()
-                  for k, v in lk[1].items()]
-    for label, shapes in new_paths:
-        path_costs[label], errs = per_prove_costs(
-            rng, label, *shapes[:2], {}, shapes[2], {}, memo)
-        for name, err in errs.items():
-            prove_errs[name] = max(prove_errs[name], err)
-    # K6's row: the prove's largest absorb (the values at z)
-    k6 = time_k6(rng, max(s for s in k6_shapes if s[0] == "absorb"),
-                 plain=True)
-    phase("per-prove kernel costs")
-    ntt_counts = ntt_path(k4)
-    perm_counts = permute_path(rng)
-    phase("ntt and permute paths")
+           for v, lk in lookups.items()}}) as verified:
+        memo = {}
+        costs, prove_errs = per_prove_costs(
+            rng, "flagship prove", k1_shapes, p2_shapes, k5_blocks, k6_shapes,
+            b2s_shapes + kec_shapes, memo)
+        path_costs = {"flagship prove": costs}
+        new_paths = [("poseidon-tree flagship " + k, v)
+                     for k, v in pt_shapes.items()]
+        new_paths += [("keccak256 circuit " + k, v)
+                      for k, v in kcc_shapes.items()]
+        new_paths += [("recursion " + k, v) for k, v in rec_shapes.items()]
+        new_paths += [("lookup heavy %s %s" % (variant, k), v)
+                      for variant, lk in lookups.items()
+                      for k, v in lk[1].items()]
+        for label, shapes in new_paths:
+            path_costs[label], errs = per_prove_costs(
+                rng, label, *shapes[:2], {}, shapes[2], {}, memo)
+            for name, err in errs.items():
+                prove_errs[name] = max(prove_errs[name], err)
+        # K6's row: the prove's largest absorb (the values at z)
+        k6 = time_k6(rng, max(s for s in k6_shapes if s[0] == "absorb"),
+                     plain=True)
+        phase("per-prove kernel costs")
+        ntt_counts = ntt_path(k4)
+        perm_counts = permute_path(rng)
+        phase("ntt and permute paths")
+        verify_secs = verified()
+        phase("verify")
 
     def row(name, source, replaces, launches, err, t):
         # launches: the kernel's main paths, the flagship's or its own, and
@@ -2246,7 +2470,8 @@ def main():
         # recursion configuration's and the lookup-heavy circuit's two
         # variants'
         launches += pt_counts[name] + kcc_counts[name] + rec_counts[name] \
-            + sum(lk[0][name] for lk in lookups.values())
+            + sum(lk[0][name] for lk in lookups.values()) \
+            + sh_counts[name] + host_counts[name]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches, max_abs_err=err, ms=t["ms"],
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

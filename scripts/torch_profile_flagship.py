@@ -5,11 +5,12 @@ digest file in `boojum_tpu_torch/data/`), runs setup and one warm-up prove
 on the card, then one prove under `torch.profiler` (CUDA activity) and
 prints one JSON line: the prove's wall time, the summed device time of its
 kernels, the device's idle share (1 - busy / wall), the launch count, and
-the kernels with the most device time. The profiler's own overhead
+the kernels with the most device time, and the port's hand kernels'
+launches in the timed prove. The profiler's own overhead
 inflates the wall time of the profiled prove, so the idle share is also
 given against the unprofiled warm prove's wall time.
 
-    python3 scripts/torch_profile_flagship.py [--config NAME]
+    python3 scripts/torch_profile_flagship.py [--config NAME] [--prover host]
 
 ``--config flagship`` (the default): the 8 kB SHA-256 circuit
 (`flagship_proof_digest.json`). ``flagship_poseidon``: the same circuit
@@ -22,6 +23,11 @@ inner proof is made first). ``lookup_heavy`` / ``lookup_heavy_general``:
 the lookup-heavy circuit of BASELINE config 4, specialized or
 general-purpose (`lookup_heavy_proof_digest.json`,
 `lookup_heavy_general_proof_digest.json`). Each prove's digest is checked.
+
+``--prover host`` proves with the port's host `prove` (host numpy stages;
+LDEs, NTTs and trees on the card) and its `create_setup_and_vk` instead of
+`DeviceProver`: one timed prove, no warm-up (a host prove keeps no device
+state between proves), then the profiled one.
 """
 
 import argparse
@@ -38,14 +44,16 @@ sys.path.insert(0, ROOT)
 TOP = 12  # kernels listed by device time
 
 
-def build(config):
-    """The prover of ``config`` on the card, its proof kinds and the
-    reference digest of its proof."""
+def build(config, prover_kind="device"):
+    """A prove of ``config`` on the card by ``prover_kind`` (`DeviceProver`,
+    or the host `prove`), as a function of no arguments, and the reference
+    digest of its proof."""
     import numpy as np
     from boojum_tpu_torch.cs.setup import create_base_setup
     from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                          create_device_setup,
-                                         prepare_setup_and_vk)
+                                         create_setup_and_vk,
+                                         prepare_setup_and_vk, prove)
 
     def load(name):
         with open(os.path.join(ROOT, "boojum_tpu_torch", "data", name)) as f:
@@ -87,10 +95,16 @@ def build(config):
         cs, _ = build_circuit(data, ref["max_trace_len"])
         cs.pad_and_shrink()
     cfg = ProofConfig(**ref["config"])
+    kinds = (ref["transcript"], ref["hasher"])
+    if prover_kind == "host":
+        art = create_setup_and_vk(cs, create_base_setup(cs), cfg,
+                                  ref["hasher"], device="cuda")
+        return (lambda: prove(cs, art, cfg, *kinds, device="cuda"),
+                ref["proof_json_sha256"])
     art = create_device_setup(cs, create_base_setup(cs), cfg, ref["hasher"],
                               device="cuda")
     prover = DeviceProver(cs, art, cfg, device="cuda")
-    return prover, (ref["transcript"], ref["hasher"]), ref["proof_json_sha256"]
+    return (lambda: prover.prove(*kinds)), ref["proof_json_sha256"]
 
 
 def main():
@@ -99,6 +113,7 @@ def main():
                     choices=("flagship", "flagship_poseidon", "keccak256",
                              "recursion_outer", "lookup_heavy",
                              "lookup_heavy_general"))
+    ap.add_argument("--prover", default="device", choices=("device", "host"))
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -108,23 +123,41 @@ def main():
         return 1
     from boojum_tpu_torch.prover.proof import proof_to_json
 
-    prover, kinds, sha = build(args.config)
+    run, sha = build(args.config, args.prover)
+    from boojum_tpu_torch.gadgets import sha256_witness as sw
+    from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    from boojum_tpu_torch.hash import poseidon
+    from boojum_tpu_torch.ntt import mxu_ntt
+    from boojum_tpu_torch.ntt import pallas_ntt as pn
+
+    def launches():
+        """The hand kernels' launch counters."""
+        return dict(ntt_stage=mxu_ntt.LAUNCHES, ntt_small=pn.LAUNCHES,
+                    poseidon2_leaf_hashes=pp.LEAF_LAUNCHES,
+                    poseidon2_node_layer=pp.NODE_LAUNCHES,
+                    poseidon_sponge=poseidon.LAUNCHES,
+                    poseidon_leaf_hashes=poseidon.LEAF_LAUNCHES,
+                    poseidon_node_layer=poseidon.NODE_LAUNCHES,
+                    sha256_witness=sw.LAUNCHES)
 
     def check(proof):
         if hashlib.sha256(proof_to_json(proof).encode()).hexdigest() != sha:
             raise AssertionError("the %s proof differs from the reference"
                                  % args.config)
 
-    check(prover.prove(*kinds))
+    if args.prover == "device":
+        check(run())  # the warm-up: the device prover's caches
     torch.cuda.synchronize()
+    before = launches()
     t0 = time.time()
-    check(prover.prove(*kinds))
+    check(run())
     torch.cuda.synchronize()
     warm = time.time() - t0
+    hand = {k: v - before[k] for k, v in launches().items()}
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        proof = prover.prove(*kinds)
+        proof = run()
         torch.cuda.synchronize()
         wall = time.time() - t0
     check(proof)
@@ -156,6 +189,7 @@ def main():
                           text=True, timeout=60).stdout.strip()
     print(json.dumps({
         "config": args.config,
+        "prover": args.prover,
         "card": card,
         "warm_prove_s": warm,
         "profiled_prove_s": wall,
@@ -164,6 +198,7 @@ def main():
         "idle_share_of_span": 1 - busy_us / max(last - first, 1e-9),
         "idle_share_of_warm_prove": 1 - busy_us / 1e6 / warm,
         "kernel_launches": len(events),
+        "hand_kernel_launches": hand,
         "profile_processing_s": time.time() - t0,
         "top_kernels": [{"name": n[:90], "device_ms": t / 1e3, "count": c}
                         for n, (t, c) in top],

@@ -24,6 +24,7 @@ from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                      create_device_setup)
 from boojum_tpu_torch.prover.proof import proof_to_json
 from tests.test_sha256 import build_sha256_circuit as ref_build
+from tests.torch_small_circuit import jitted_reference
 
 
 def test_device_witness_prove_byte_identical():
@@ -36,10 +37,11 @@ def test_device_witness_prove_byte_identical():
     for c in (ref_cs, cs):
         c.pad_and_shrink()
     cfg = dict(fri_lde_factor=4, merkle_tree_cap_size=4)
-    ref_art = create_setup_and_vk(ref_cs, ref_create_base_setup(ref_cs),
-                                  RefProofConfig(**cfg), "poseidon2")
-    ref_proof = prove(ref_cs, ref_art, RefProofConfig(**cfg), "poseidon",
-                      "poseidon2")
+    with jitted_reference():
+        ref_art = create_setup_and_vk(ref_cs, ref_create_base_setup(ref_cs),
+                                      RefProofConfig(**cfg), "poseidon2")
+        ref_proof = prove(ref_cs, ref_art, RefProofConfig(**cfg), "poseidon",
+                          "poseidon2")
     threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or 1)
     try:

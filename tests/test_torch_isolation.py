@@ -9,7 +9,8 @@ import os
 import pytest
 import torch
 
-from boojum_tpu_torch.prover import DeviceProver, create_device_setup
+from boojum_tpu_torch.prover import (DeviceProver, create_device_setup,
+                                     create_setup_and_vk, prove)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "boojum_tpu")
@@ -52,12 +53,17 @@ def test_entry_points_default_to_the_gpu():
         DeviceProver(None, None, None)
     with pytest.raises(RuntimeError, match="CUDA"):
         create_device_setup(None, None, None)
+    with pytest.raises(RuntimeError, match="CUDA"):  # the host prove's
+        create_setup_and_vk(None, None, None, "poseidon2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prove(None, None, None)
 
 
 # the gadget and recursion modules of the Keccak-256 and recursion slice,
-# the lookup-heavy circuit's builder, and the rest of the circuit library
+# the lookup-heavy circuit's builder, the rest of the circuit library
 # (the wrappers, queues, Blake2s, non-native field and curve gadgets, the
-# gate-testing harness and the native witness engine's bindings)
+# gate-testing harness and the native witness engine's bindings), the
+# sharded prover (parallel/) and the host prove with its oracles and FRI
 SLICE_MODULES = (
     "boojum_tpu_torch.gadgets.lookup_heavy",
     "boojum_tpu_torch.gadgets.keccak256",
@@ -75,6 +81,12 @@ SLICE_MODULES = (
     "boojum_tpu_torch.gadgets.curves",
     "boojum_tpu_torch.cs.gates.testing",
     "boojum_tpu_torch.utils.native",
+    "boojum_tpu_torch.parallel",
+    "boojum_tpu_torch.parallel.sharding",
+    "boojum_tpu_torch.parallel.sharded_oracle",
+    "boojum_tpu_torch.prover.prover",
+    "boojum_tpu_torch.prover.oracles",
+    "boojum_tpu_torch.prover.fri",
 )
 
 

@@ -37,6 +37,7 @@ from boojum_tpu_torch.prover.proof import proof_to_json
 from boojum_tpu_torch.prover.prover import materialize_witness_columns
 from boojum_tpu_torch.verifier import verify
 from scripts.torch_reference_digest import lookup_heavy_circuit
+from tests.torch_small_circuit import jitted_reference
 
 P = 0xFFFFFFFF00000001
 CFG = dict(fri_lde_factor=4, merkle_tree_cap_size=16, security_level=100,
@@ -124,16 +125,18 @@ class _Modes(dict):
         ref_cs = build_circuit("boojum_tpu", *key, np.random.default_rng(seed))
         cs = build_circuit("boojum_tpu_torch", *key, np.random.default_rng(seed))
         ref_sb, sb = ref_create_base_setup(ref_cs), create_base_setup(cs)
-        ref_art = create_setup_and_vk(ref_cs, ref_sb, RefProofConfig(**CFG),
-                                      HASHER)
+        with jitted_reference():
+            ref_art = create_setup_and_vk(ref_cs, ref_sb,
+                                          RefProofConfig(**CFG), HASHER)
+            ref_proof = prove(ref_cs, ref_art, RefProofConfig(**CFG), KIND,
+                              HASHER)
         art = create_device_setup(cs, sb, ProofConfig(**CFG), HASHER,
                                   device="cpu")
         self[key] = dict(
             ref_cs=ref_cs, cs=cs, ref_sb=ref_sb, sb=sb, ref_art=ref_art,
             art=art, prover=DeviceProver(cs, art, ProofConfig(**CFG),
                                          device="cpu"),
-            ref_proof=prove(ref_cs, ref_art, RefProofConfig(**CFG), KIND,
-                            HASHER), proofs={})
+            ref_proof=ref_proof, proofs={})
         return self[key]
 
 

@@ -5,7 +5,8 @@ byte-identical under `proof_to_json`, and the reference verifier must accept
 the port's proofs (and the port's verifier the reference's), for the
 algebraic transcripts with Poseidon2 trees, the Poseidon transcript with
 classic-Poseidon trees (host and device transcript), the Blake2s and
-Keccak-256 configurations, and with proof of work.
+Keccak-256 configurations, and with proof of work; and the port's host
+`prove` and `create_setup_and_vk` against the same reference.
 
 The port's verifier against the JAX package's (in this file so that one
 xdist worker makes the shared setups and proofs of
@@ -33,8 +34,9 @@ from boojum_tpu.verifier import verify
 from boojum_tpu.verifier import verify as ref_verify
 from boojum_tpu_torch.cs.setup import create_base_setup
 from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
-                                     create_device_setup)
+                                     create_device_setup, create_setup_and_vk)
 from boojum_tpu_torch.prover import device_merkle
+from boojum_tpu_torch.prover import prove as host_prove
 from boojum_tpu_torch.prover import device_transcript as dtm
 from boojum_tpu_torch.prover import serialization as ser
 from boojum_tpu_torch.prover.proof import proof_to_json
@@ -305,6 +307,31 @@ def test_poseidon_tree_proof_is_byte_identical_and_verifies(
     bad = copy.deepcopy(proof)
     bad.queries_per_fri_repetition[0].witness_query.leaf_elements[0] ^= 1
     assert not port_verify(art.vk, bad, "poseidon", "poseidon")
+
+
+@pytest.mark.parametrize("hasher", ["poseidon2", "blake2s"])
+def test_host_setup_and_vk_match_reference(both, hasher):
+    """The port's `create_setup_and_vk` (the host prove's setup, its LDE
+    and tree on the CPU) gives the reference's VK."""
+    ref_art = setups(CFG, hasher)[0]
+    art = create_setup_and_vk(both["cs"], both["sb"], ProofConfig(**CFG),
+                              hasher, device="cpu")
+    assert vk_to_json(art.vk) == vk_to_json(ref_art.vk)
+
+
+@pytest.mark.parametrize("kind,hasher", [("poseidon", "poseidon2"),
+                                         ("poseidon2", "poseidon2"),
+                                         ("blake2s", "blake2s")])
+def test_host_prove_is_the_reference_host_proof(both, kind, hasher):
+    """The port's host `prove` (numpy stages, its LDEs, NTTs and trees on
+    the CPU) gives the JAX host `prove`'s bytes, for the algebraic
+    transcripts with Poseidon2 trees and the Blake2s configuration."""
+    art = create_setup_and_vk(both["cs"], both["sb"], ProofConfig(**CFG),
+                              hasher, device="cpu")
+    proof = host_prove(both["cs"], art, ProofConfig(**CFG), kind, hasher,
+                       device="cpu")
+    assert proof_to_json(proof) == ref_proof_to_json(
+        reference_proof(CFG, kind, hasher))
 
 
 def test_unported_options_raise(both):

@@ -1,5 +1,5 @@
 """The small lookup circuit of tests/test_prove_verify.py in either
-package, and its setups and proofs (the JAX host `prove`'s and the port's
+package (built by tests/torch_circuits.py), and its setups and proofs (the JAX host `prove`'s and the port's
 CPU `DeviceProver`'s), each made once a process at its first use: the
 port's prover and verifier tests (tests/test_torch_prover.py) share them,
 and the gate-testing cases of tests/test_torch_gadgets.py build the
@@ -8,7 +8,6 @@ a process reads one cache."""
 
 import contextlib
 import functools
-import importlib
 import os
 
 import jax
@@ -23,6 +22,7 @@ from boojum_tpu_torch.cs.setup import create_base_setup
 from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                      create_device_setup)
 from boojum_tpu_torch.prover import device_merkle
+from tests.torch_circuits import build_small_circuit  # noqa: F401
 
 P = 0xFFFFFFFF00000001
 
@@ -42,46 +42,6 @@ def share_cores():
 
 
 share_cores()
-
-
-def build_small_circuit(pkg: str, rng, n_fma=30):
-    """tests/test_prove_verify.py:build_small_circuit(with_lookup=True),
-    written against either package's circuit modules."""
-    csm = importlib.import_module(pkg + ".cs")
-    g = importlib.import_module(pkg + ".cs.gates")
-    geom = csm.CSGeometry(num_columns_under_copy_permutation=16,
-                          num_witness_columns=0, num_constant_columns=4,
-                          max_allowed_constraint_degree=4)
-    cs = csm.ConstraintSystem(geom, 1 << 10, csm.CSConfig.dev())
-    cs.allow_lookup(csm.LookupParameters.specialized_with_table_id_as_constant(
-        width=3, num_repetitions=2, share_table_id=True))
-    cs.allow_gate(g.ConstantsAllocatorGate)
-    cs.allow_gate(g.FmaGate)
-    cs.allow_gate(g.ReductionGate, params=4)
-    cs.allow_gate(g.BooleanConstraintGate)
-    cs.allow_gate(g.SelectionGate)
-    cs.allow_gate(g.PublicInputGate)
-    cs.allow_gate(g.NopGate)
-    rows = [(a, b, a ^ b) for a in range(8) for b in range(8)]
-    tid = cs.add_lookup_table(csm.LookupTable("xor3", np.asarray(rows, np.uint64),
-                                              num_keys=2))
-    a = cs.alloc_variables_with_values(rng.integers(0, P, n_fma, dtype=np.uint64))
-    b = cs.alloc_variables_with_values(rng.integers(0, P, n_fma, dtype=np.uint64))
-    c = cs.alloc_variables_with_values(rng.integers(0, P, n_fma, dtype=np.uint64))
-    d = g.FmaGate.compute_fma_batch(cs, 3, (a, b), 5, c)
-    e = g.ReductionGate.reduce_terms_batch(
-        cs, [1, 2, 3, 4], np.stack([a[:8], b[:8], c[:8], d[:8]]))
-    g.ConstantsAllocatorGate.allocate_constant(cs, 1234)
-    bits = g.BooleanConstraintGate.allocate_batch(cs, [1, 0, 1, 1])
-    g.SelectionGate.select_batch(cs, a[:4], b[:4], bits)
-    la = cs.alloc_variables_with_values([1, 2, 3, 7, 5])
-    lb = cs.alloc_variables_with_values([6, 2, 1, 7, 0])
-    lo = cs.alloc_variables_with_values([1 ^ 6, 0, 3 ^ 1, 0, 5])
-    cs.enforce_lookup_batch(tid, np.stack([la, lb, lo]))
-    g.PublicInputGate.place(cs, int(d[0]))
-    g.PublicInputGate.place(cs, int(e[0]))
-    cs.pad_and_shrink()
-    return cs
 
 
 # circuits, setups and proofs of the small circuit, each made once a
@@ -110,12 +70,26 @@ def _cfg_key(cfg):
     return tuple(sorted(cfg.items()))
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted_butterfly(name):
+    from boojum_tpu.ntt import ntt as ref_ntt
+    return jax.jit(getattr(ref_ntt, name), static_argnums=(2, 3, 4))
+
+
 @contextlib.contextmanager
-def reference_trees(hasher):
-    """The JAX package's trees of ``hasher`` as the shared fixtures build
-    them: for classic-Poseidon trees its sponge's permutation runs jitted
-    (`use_jax_poseidon_perm`) for the block."""
+def jitted_reference(hasher="poseidon2"):
+    """The JAX package's host setup and `prove` as the port's tests run
+    them: its radix-2 NTT stages (`boojum_tpu.ntt.ntt._butterfly_fwd` /
+    `_butterfly_inv`), which it runs eagerly as one small XLA program a
+    primitive and shape, jitted whole for the block (the same integer jnp
+    ops, so the same values, in one program a stage and shape, and much
+    of a host prove's time on the CPU); and for classic-Poseidon
+    trees its sponge's permutation jitted too (`use_jax_poseidon_perm`)."""
+    from boojum_tpu.ntt import ntt as ref_ntt
+
     with pytest.MonkeyPatch.context() as mp:
+        for name in ("_butterfly_fwd", "_butterfly_inv"):
+            mp.setattr(ref_ntt, name, _jitted_butterfly(name))
         if hasher == "poseidon":
             use_jax_poseidon_perm(mp.setattr)
         yield
@@ -126,7 +100,7 @@ def setups(cfg, hasher):
     ``cfg`` with ``hasher``'s trees."""
     def make():
         c = small_circuits()
-        with reference_trees(hasher):
+        with jitted_reference(hasher):
             ref = create_setup_and_vk(c["ref_cs"], c["ref_sb"],
                                       RefProofConfig(**cfg), hasher)
         return (ref, create_device_setup(c["cs"], c["sb"], ProofConfig(**cfg),
@@ -139,7 +113,7 @@ def reference_proof(cfg, transcript, hasher):
     def make():
         c = small_circuits()
         ref_art = setups(cfg, hasher)[0]
-        with reference_trees(hasher):
+        with jitted_reference(hasher):
             return prove(c["ref_cs"], ref_art, RefProofConfig(**cfg),
                          transcript, hasher)
     return _shared(("reference", _cfg_key(cfg), transcript, hasher), make)
