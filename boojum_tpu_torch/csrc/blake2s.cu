@@ -131,6 +131,8 @@ __global__ void __launch_bounds__(THREADS)
 // the node hash: one compression of the 64 bytes left || right, counter 64,
 // last-block flag set
 struct NodeHash {
+  static constexpr int WORDS = 8;  // u32 words a digest
+  using Word = uint32_t;
   __device__ __forceinline__ void operator()(const uint32_t in[16],
                                              uint32_t h[8]) const {
     init(h);

@@ -1,12 +1,15 @@
-// The node layers of a byte Merkle tree, all in one launch: the schedule
-// that kernels K8 (blake2s.cu) and K9 (keccak.cu) share around their own
-// node hash.
+// The node layers of a Merkle tree, all in one launch: the schedule that
+// the byte trees' kernels K8 (blake2s.cu) and K9 (keccak.cu) and the
+// classic-Poseidon tree (poseidon.cu) share around their own node hash.
 //
-// A layer holds m digests as 8 word planes: word w of digest i at
-// layer[w * m + i], a u64 in [0, 2^32). One launch of a kernel around
-// node_tree, over grid(m) blocks of THREADS threads, computes the `levels`
-// layers above an (8, m) layer `cur` (m a multiple of 2^levels) and writes
-// them one after the other from `out`: (8, m / 2), then (8, m / 4), ...
+// The schedule is generic over the digest, which the node hash declares:
+// Hash::WORDS planes of Hash::Word (K8 / K9: 8 u32 words; Poseidon: 4
+// Goldilocks elements, u64). A layer holds m digests as WORDS planes: word
+// w of digest i at layer[w * m + i], a u64 (a u32 word's value in [0,
+// 2^32)). One launch of a kernel around node_tree, over grid(m) blocks of
+// THREADS threads, computes the `levels` layers above a (WORDS, m) layer
+// `cur` (m a multiple of 2^levels) and writes them one after the other from
+// `out`: (WORDS, m / 2), then (WORDS, m / 4), ...
 //
 // Stages. The levels go in stages of STAGE levels (the last stage may have
 // fewer). A block of stage s owns the subtree over n = min(2 THREADS,
@@ -37,17 +40,19 @@
 //
 // A launch may also cover only part of a tree: the wrapper gives a tree of
 // more than 2^17 digests two launches, its first stage alone and then the
-// rest (measured faster there; device_bytes_hash.node_launches).
+// rest (measured faster there for K8 and K9;
+// device_bytes_hash.node_launches, which the Poseidon tree shares).
 //
 // Every level is written out: the query phase reads every layer. The
 // pointers are not __restrict__: a stage reads the layer the one before it
 // wrote through `out`.
 //
 // Cost: a block holds the 2 THREADS children of its first level in
-// registers and its parents in 8 KB of shared memory. The top of the tree
-// runs on one block a group, one stage (3 hash latencies) after another.
-// THREADS and STAGE were measured (scripts/torch_byte_tree_compare.py):
-// 256 and 3 beat 128 or 64 threads and 1, 2 or 4 levels a stage.
+// registers and its parents in WORDS x THREADS words of shared memory, 8 KB
+// for either digest. The top of the tree runs on one block a group, one
+// stage (3 hash latencies) after another. THREADS and STAGE were measured
+// on the byte trees (scripts/torch_byte_tree_compare.py): 256 and 3 beat
+// 128 or 64 threads and 1, 2 or 4 levels a stage.
 #pragma once
 
 #include <cstdint>
@@ -61,13 +66,27 @@ constexpr int GROUP = 1 << STAGE;  // blocks of a stage handing on to one
 static_assert((THREADS >> (STAGE - 1)) >= 32,
               "every level of a full stage fills its warps");
 
-// `hash(in, out)` is the node hash: in = left's 8 words then right's 8,
-// out = the parent's 8 words.
+// Two neighbouring words of a shared plane, read as one load.
+template <typename Word>
+struct Pair;
+template <>
+struct Pair<uint32_t> {
+  using type = uint2;
+};
+template <>
+struct Pair<uint64_t> {
+  using type = ulonglong2;
+};
+
+// `hash(in, out)` is the node hash: in = left's WORDS words then right's,
+// out = the parent's WORDS words.
 template <typename Hash>
 __device__ __forceinline__ void node_tree(const uint64_t* cur, uint64_t* out,
                                           long long m, int levels,
                                           unsigned* tickets, Hash hash) {
-  __shared__ __align__(16) uint32_t slot[8][THREADS];
+  constexpr int WORDS = Hash::WORDS;
+  using Word = typename Hash::Word;
+  __shared__ __align__(16) Word slot[WORDS][THREADS];
   __shared__ bool goes_on;
   const int t = threadIdx.x;
   long long b = blockIdx.x;  // this block's index in its stage
@@ -84,40 +103,41 @@ __device__ __forceinline__ void node_tree(const uint64_t* cur, uint64_t* out,
     for (int j = 0; j < stage; ++j) {
       const int parents = n >> 1;
       const long long half = w >> 1;
-      uint32_t in[16];
+      Word in[2 * WORDS];
       if (t < parents) {
         if (j == 0) {
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
+          for (int k = 0; k < WORDS; ++k) {
             const ulonglong2 pair = __ldcg(reinterpret_cast<const ulonglong2*>(
                 src + k * w + first) + t);
-            in[k] = (uint32_t)pair.x;
-            in[8 + k] = (uint32_t)pair.y;
+            in[k] = (Word)pair.x;
+            in[WORDS + k] = (Word)pair.y;
           }
         } else {
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const uint2 pair =
-                *reinterpret_cast<const uint2*>(&slot[k][2 * t]);
+          for (int k = 0; k < WORDS; ++k) {
+            const typename Pair<Word>::type pair =
+                *reinterpret_cast<const typename Pair<Word>::type*>(
+                    &slot[k][2 * t]);
             in[k] = pair.x;
-            in[8 + k] = pair.y;
+            in[WORDS + k] = pair.y;
           }
         }
       }
       __syncthreads();
       if (t < parents) {
-        uint32_t h[8];
+        Word h[WORDS];
         hash(in, h);
         const long long p = (first >> (j + 1)) + t;
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
+        for (int k = 0; k < WORDS; ++k) {
           slot[k][t] = h[k];
           out[k * half + p] = h[k];
         }
       }
       __syncthreads();
       src = out;  // the layer just written
-      out += 8 * half;
+      out += WORDS * half;
       w = half;
       n = parents;
     }

@@ -168,6 +168,8 @@ __global__ void __launch_bounds__(THREADS)
 // the node hash: the 64 bytes left || right as lanes 0-7, the pad's 0x01
 // in lane 8 and its 0x80 in lane 16, one permutation
 struct NodeHash {
+  static constexpr int WORDS = 8;  // u32 words a digest
+  using Word = uint32_t;
   __device__ __forceinline__ void operator()(const uint32_t in[16],
                                              uint32_t h[8]) const {
     uint64_t s[25];

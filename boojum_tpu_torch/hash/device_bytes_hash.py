@@ -22,7 +22,10 @@ version on a CPU tensor:
   `keccak_nodes_traced` a layer); one launch for the whole tree, two for
   a tree above 2^17 digests (``csrc/byte_tree.cuh``: blocks of 256
   threads hash subtrees of 3 levels in shared memory, and the last block
-  of every 8 goes on up the tree), all layers views of one buffer.
+  of every 8 goes on up the tree), all layers views of one buffer. The
+  schedule's planner (`node_widths`, `node_launches`, `node_tickets`) and
+  launch loop (`launch_node_layers`) also serve the classic-Poseidon
+  tree's `poseidon.node_layers`.
 
 A digest is held as the reference's 8 little-endian u32 word planes, each
 word an int64 in [0, 2^32) (torch's uint32 lacks shifts on some CPU builds);
@@ -314,14 +317,46 @@ def node_layers_plain(cur: torch.Tensor, algo: str, cap_size: int) -> list:
     return layers
 
 
-def node_buffer(cur: torch.Tensor, widths: list) -> list:
+def node_buffer(cur: torch.Tensor, widths: list,
+                words: int = DIGEST_WORDS) -> list:
     """One buffer on ``cur``'s device for node layers of these widths, one
-    after the other: the (8, w) views into it."""
-    buf = cur.new_empty(DIGEST_WORDS * sum(widths))
+    after the other: the (words, w) views into it."""
+    buf = cur.new_empty(words * sum(widths))
     layers, at = [], 0
     for w in widths:
-        layers.append(buf.as_strided((DIGEST_WORDS, w), (w, 1), at))
-        at += DIGEST_WORDS * w
+        layers.append(buf.as_strided((words, w), (w, 1), at))
+        at += words * w
+    return layers
+
+
+def launch_node_layers(cur: torch.Tensor, widths: list, launch, entry: str,
+                       counted) -> list:
+    """The CUDA branch of a ``csrc/byte_tree.cuh`` tree entry: the node
+    layers of ``widths`` above the (words, m) digests ``cur``, views of one
+    `node_buffer`, computed by the launches `node_launches` plans, each
+    ``launch(cur, out, m, levels, tickets, stream)`` (the ctypes entry
+    ``entry``) and then ``counted(m, levels)``."""
+    from ..utils import cuda_build
+
+    cur = cur.contiguous()
+    if cur.data_ptr() % 16:  # the kernels read each pair with one 16-byte load
+        cur = cur.clone()
+    layers = node_buffer(cur, widths, cur.shape[0])
+    launches = node_launches(cur.shape[1], len(widths))
+    # the hand-on counters of every launch, zeroed at once
+    counts = [node_tickets(m, levels) for m, levels in launches]
+    tickets = torch.zeros(max(sum(counts), 1), dtype=torch.int32,
+                          device=cur.device)
+    stream = cuda_build.stream_handle(cur)
+    src, done, first = cur, 0, 0
+    for (m, levels), n in zip(launches, counts):
+        rc = launch(src.data_ptr(), layers[done].data_ptr(), m, levels,
+                    tickets[first:].data_ptr(), stream)
+        cuda_build.check(rc, entry)
+        counted(m, levels)
+        done += levels
+        first += n
+        src = layers[done - 1]
     return layers
 
 
@@ -339,29 +374,14 @@ def node_layers(cur: torch.Tensor, algo: str, cap_size: int) -> list:
         return []
     from ..utils import cuda_build
 
-    cur = cur.contiguous()
-    if cur.data_ptr() % 16:  # the kernels read each pair with one 16-byte load
-        cur = cur.clone()
-    layers = node_buffer(cur, widths)
-    launches = node_launches(cur.shape[1], len(widths))
-    # the hand-on counters of every launch, zeroed at once
-    counts = [node_tickets(m, levels) for m, levels in launches]
-    tickets = torch.zeros(max(sum(counts), 1), dtype=torch.int32,
-                          device=cur.device)
-    entry = "%s_node_layers" % _LIBS[algo]
-    launch = getattr(cuda_build.load(_LIBS[algo]), entry)
-    stream = cuda_build.stream_handle(cur)
-    src, done, first = cur, 0, 0
-    for (m, levels), n in zip(launches, counts):
-        rc = launch(src.data_ptr(), layers[done].data_ptr(), m, levels,
-                    tickets[first:].data_ptr(), stream)
-        cuda_build.check(rc, entry)
+    def counted(m, levels):
         NODE_LAUNCHES[algo] += 1
         SHAPES[(algo, "nodes", m, levels)] += 1
-        done += levels
-        first += n
-        src = layers[done - 1]
-    return layers
+
+    entry = "%s_node_layers" % _LIBS[algo]
+    return launch_node_layers(
+        cur, widths, getattr(cuda_build.load(_LIBS[algo]), entry), entry,
+        counted)
 
 
 def digests_to_bytes(words: np.ndarray) -> list[bytes]:

@@ -16,14 +16,19 @@ transcript.rs:131-139) and by the classic-Poseidon Merkle trees.
   permutation inside `boojum_tpu/prover/device_transcript.py` `_flush_jit`,
   `_perm_jit` and `_ext_extract_cross_jit`), their plain versions
   `sponge_absorb_plain` / `sponge_permute_plain` on a CPU tensor;
-- `leaf_hashes` / `node_layer`: the Merkle tree of the ``"poseidon"`` tree
-  hasher, (k, m) leaf columns -> (4, m) leaf hashes and (4, m) -> (4, m/2)
-  parents, one launch each of the entries ``poseidon_leaf_hashes`` /
-  ``poseidon_node_layer`` of ``csrc/poseidon.cu`` on a CUDA tensor (they
+- `leaf_hashes` / `node_layers` / `node_layer`: the Merkle tree of the
+  ``"poseidon"`` tree hasher, (k, m) leaf columns -> (4, m) leaf hashes,
+  (4, m) -> every node layer above it down to the cap, and (4, m) ->
+  (4, m/2) parents: on a CUDA tensor the entries ``poseidon_leaf_hashes``
+  (one launch), ``poseidon_node_layers`` (one or two launches a tree,
+  ``csrc/byte_tree.cuh``'s schedule) and ``poseidon_node_layer`` (one
+  launch a layer, for the sharded trees) of ``csrc/poseidon.cu``, which
+  run the permutation with sparse partial rounds (`poseidon_sparse`); they
   replace the batched jnp sponge of `boojum_tpu/hash/sponge.py`
   `hash_leaves` / `hash_nodes` behind the reference's host
-  `AlgebraicMerkleTree`), their plain versions `leaf_hashes_plain` /
-  `node_layer_plain` (`sponge.hash_leaves` / `hash_nodes`) on a CPU tensor;
+  `AlgebraicMerkleTree`. Their plain versions `leaf_hashes_plain` /
+  `node_layers_plain` / `node_layer_plain` (`sponge.hash_leaves` /
+  `hash_nodes`, a layer at a time) run on a CPU tensor;
 - `s_permutation`: the exact Python-int twin of the host transcript.
 """
 
@@ -38,7 +43,8 @@ import torch
 from ..field import goldilocks as gl
 from ..field.goldilocks import ORDER
 from . import _poseidon_constants as C
-from . import sponge
+from . import device_bytes_hash as dbh
+from . import poseidon_sparse, sponge
 from .poseidon2 import _s_sbox7, _sbox7  # same x^7 S-box
 
 STATE_WIDTH = C.STATE_WIDTH
@@ -53,15 +59,16 @@ _EXPS = C.MDS_MATRIX_EXPS
 # MDS[row][col] = 2^EXPS[(12 - row + col) % 12]
 _MDS_POW = [[1 << _EXPS[(12 - r + c) % 12] for c in range(12)] for r in range(12)]
 
-# launches of the sponge kernel's two entries, of the tree's leaf and node
-# entries, and calls of a plain version on a CUDA tensor (chip_smoke.py reads
-# them around each path)
+# launches of the sponge kernel's two entries, of the tree's leaf, node
+# layer and node layers entries, and calls of a plain version on a CUDA
+# tensor (chip_smoke.py reads them around each path)
 LAUNCHES = 0
 LEAF_LAUNCHES = 0
 NODE_LAUNCHES = 0
+NODE_LAYERS_LAUNCHES = 0
 PLAIN_CUDA_CALLS = 0
-# launches by shape: ("absorb", rate blocks), ("permute",), ("leaf", k, m)
-# or ("node", m)
+# launches by shape: ("absorb", rate blocks), ("permute",), ("leaf", k, m),
+# ("node", m) or ("nodes", m, levels)
 SHAPES = collections.Counter()
 
 
@@ -252,6 +259,37 @@ def node_layer_plain(cur: torch.Tensor) -> torch.Tensor:
     return sponge.hash_nodes(cur[:, 0::2], cur[:, 1::2], "poseidon")
 
 
+def node_layers_plain(cur: torch.Tensor, cap_size: int) -> list:
+    """The plain torch version of ``poseidon_node_layers``: one
+    `node_layer_plain` a layer."""
+    layers = []
+    for _ in dbh.node_widths(cur.shape[1], cap_size):
+        cur = node_layer_plain(cur)
+        layers.append(cur)
+    return layers
+
+
+_TREE_CONSTANTS_SET = set()  # devices whose constant memory holds the table
+
+
+def _tree_lib(device):
+    """The kernel library, the tree entries' table (`poseidon_sparse`) in
+    the constant memory of ``device`` (copied once a device)."""
+    from ..utils import cuda_build
+
+    lib = cuda_build.load("poseidon")
+    key = torch.device(device).index or 0
+    if key not in _TREE_CONSTANTS_SET:
+        table = np.asarray(poseidon_sparse.kernel_table(), np.uint64)
+        exps = np.asarray(_EXPS, np.int64)
+        with torch.cuda.device(key):
+            cuda_build.check(lib.poseidon_tree_set_constants(
+                table.ctypes.data, table.size, exps.ctypes.data),
+                "poseidon_tree_set_constants")
+        _TREE_CONSTANTS_SET.add(key)
+    return lib
+
+
 def _check_tree(t: torch.Tensor, what: str, rows=None):
     if t.dtype != torch.int64 or t.dim() != 2 or \
             (rows is not None and t.shape[0] != rows):
@@ -280,10 +318,9 @@ def leaf_hashes(cols: torch.Tensor) -> torch.Tensor:
     if cols.stride(1) != 1 or (k > 1 and cols.stride(0) < m):
         cols = cols.contiguous()
     ld = cols.stride(0) if k > 1 else m
-    lib = cuda_build.load("poseidon")
+    lib = _tree_lib(cols.device)
     out = cols.new_empty((CAPACITY, m))
     rc = lib.poseidon_leaf_hashes(cols.data_ptr(), out.data_ptr(), k, m, ld,
-                                  _table(cols.device).data_ptr(),
                                   cuda_build.stream_handle(cols))
     cuda_build.check(rc, "poseidon_leaf_hashes")
     LEAF_LAUNCHES += 1
@@ -306,15 +343,38 @@ def node_layer(cur: torch.Tensor) -> torch.Tensor:
     cur = cur.contiguous()
     if cur.data_ptr() % 16:  # the kernel reads each pair with one 16-byte load
         cur = cur.clone()
-    lib = cuda_build.load("poseidon")
+    lib = _tree_lib(cur.device)
     out = cur.new_empty((CAPACITY, m // 2))
     rc = lib.poseidon_node_layer(cur.data_ptr(), out.data_ptr(), m,
-                                 _table(cur.device).data_ptr(),
                                  cuda_build.stream_handle(cur))
     cuda_build.check(rc, "poseidon_node_layer")
     NODE_LAUNCHES += 1
     SHAPES[("node", m)] += 1
     return out
+
+
+def node_layers(cur: torch.Tensor, cap_size: int) -> list:
+    """(4, m) canonical nodes -> the node layers above them, (4, m/2),
+    (4, m/4), ..., down to ``cap_size`` nodes or to the first odd width. On
+    a CUDA tensor the launches of ``poseidon_node_layers`` that
+    `device_bytes_hash.node_launches` plans (one a tree, two above
+    `device_bytes_hash.NODE_SPLIT` nodes) compute them all into one buffer
+    (each layer a (4, m_l) view into it)."""
+    _check_tree(cur, "the node layer", CAPACITY)
+    if cur.device.type == "cpu":
+        return node_layers_plain(cur, cap_size)
+    widths = dbh.node_widths(cur.shape[1], cap_size)
+    if not widths:
+        return []
+
+    def counted(m, levels):
+        global NODE_LAYERS_LAUNCHES
+        NODE_LAYERS_LAUNCHES += 1
+        SHAPES[("nodes", m, levels)] += 1
+
+    return dbh.launch_node_layers(
+        cur, widths, _tree_lib(cur.device).poseidon_node_layers,
+        "poseidon_node_layers", counted)
 
 
 # ----------------------------------------------------------------------------

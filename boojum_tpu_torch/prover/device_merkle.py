@@ -7,8 +7,9 @@ of a Poseidon2 tree are one `pallas_poseidon2.leaf_hashes` call and each
 node layer one `pallas_poseidon2.node_layer` call (on the GPU one launch
 each of the Hopper `poseidon2_leaf_hashes` and `poseidon2_node_layer`
 kernels); a classic-Poseidon tree's are `poseidon.leaf_hashes` and
-`poseidon.node_layer` (kernels `poseidon_leaf_hashes` and
-`poseidon_node_layer`; the reference builds it on the host,
+one `poseidon.node_layers` call (one launch for its node layers, two for a
+tree above 2^17 leaves; kernels `poseidon_leaf_hashes` and
+`poseidon_node_layers`; the reference builds it on the host,
 boojum_tpu/prover/device_merkle.py:332); a Blake2s or Keccak-256 tree
 (src/cs/oracle/mod.rs:179, :247) takes one `device_bytes_hash.leaf_hashes` call and one `node_layers` call
 (kernels K8 and K9: one launch for its node layers, two for a tree above
@@ -116,10 +117,17 @@ _ALGEBRAIC = {
 def build_device_tree(cols: torch.Tensor, cap_size: int,
                       hasher: str = "poseidon2") -> "DeviceTree":
     """Poseidon2 or Poseidon Merkle-cap tree of leaf columns (k, m); leaf i
-    is column i."""
+    is column i. A Poseidon tree's node layers are views of one buffer
+    (`poseidon.node_layers`)."""
     leaf_hashes, node_layer = _ALGEBRAIC[hasher]
     cur = leaf_hashes(cols)
     layers = [cur]
+    if hasher == "poseidon":
+        layers += poseidon.node_layers(cur, cap_size)
+        if layers[-1].shape[1] > cap_size:
+            raise ValueError("a node layer needs an even width, got %d"
+                             % layers[-1].shape[1])
+        return DeviceTree(layers)
     while cur.shape[1] > cap_size:
         cur = node_layer(cur)
         layers.append(cur)

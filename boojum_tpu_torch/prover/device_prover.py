@@ -10,7 +10,7 @@ permutation grand product, lookup A/B polys); the quotient over the flat
 the query openings. NTTs run through the `ntt_stage` kernel and every Merkle
 tree through the leaf and node entries of the tree hasher's kernel on the
 GPU: `poseidon2` (K2), `poseidon` (`poseidon_leaf_hashes` /
-`poseidon_node_layer`), `blake2s` (K8) or `keccak256` (K9). With
+`poseidon_node_layers`), `blake2s` (K8) or `keccak256` (K9). With
 ``pow_bits > 0`` the host grinds the proof of work after FRI
 (`prover/pow.py`), as the reference does.
 

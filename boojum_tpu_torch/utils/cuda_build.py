@@ -54,9 +54,13 @@ _SIGNATURES = {
         # state, elements, k, out state, round constants, stream
         "poseidon_absorb": [_P, _P, _LL, _P, _P, _P],
         "poseidon_permute": [_P, _P, _P, _P],  # state, out, constants, stream
-        # cols, out, k, m, row stride of cols, constants, stream
-        "poseidon_leaf_hashes": [_P, _P, _I, _LL, _LL, _P, _P],
-        "poseidon_node_layer": [_P, _P, _LL, _P, _P],  # cur, out, m, constants, stream
+        # the tree entries' table, its length, the MDS exponents
+        "poseidon_tree_set_constants": [_P, _LL, _P],
+        # cols, out, k, m, row stride of cols, stream
+        "poseidon_leaf_hashes": [_P, _P, _I, _LL, _LL, _P],
+        "poseidon_node_layer": [_P, _P, _LL, _P],  # cur, out, m, stream
+        # cur, out, m, levels, tickets, stream
+        "poseidon_node_layers": [_P, _P, _LL, _I, _P, _P],
     },
     # cols, out, k, m, row stride of cols, stream; cur, out, m, levels,
     # tickets, stream

@@ -13,8 +13,12 @@ path's two shapes with its real twiddle tables, `sha256_witness` at 1, 3,
 (`poseidon_absorb` at 0 .. 130 elements from several states, and
 `poseidon_permute`), the classic-Poseidon tree entries of the same library
 (`poseidon_leaf_hashes` at k = 1, 7, 8, 9, 16, 93 elements a leaf and on a
-strided view, `poseidon_node_layer` at m = 2, 32, 1000; both also at every
-tree shape of a Poseidon-tree prove), and the Blake2s (K8) and Keccak-256
+strided view, `poseidon_node_layer` at m = 2, 32, 1000, and
+`poseidon_node_layers`, a tree's node layers in one or two launches,
+against the plain per-layer chain at m = 2, 32, 1000 and every tree of a
+Poseidon-tree prove: three of 2^19 leaves, one each of 2^16, 2^13, 2^10
+and 2^7, cap 16; all three also at every launch shape of that prove), and
+the Blake2s (K8) and Keccak-256
 (K9) tree hashes
 (`*_leaf_hashes` at k = 1, 8, 16, 17, 34, 93 elements a leaf, the block
 boundaries of both hashes, and on a strided view; `*_node_layers`, every
@@ -62,17 +66,21 @@ after:
   counted (a warm prove at most 12: the sharded prove takes the host
   transcript and the host witness, as the reference's mesh path does) and
   its collectives by kind printed; it must launch `ntt_stage` and the
-  Poseidon2 leaf and node entries, and no plain version;
+  Poseidon2 leaf and node entries, and no plain version; then one sharded
+  classic-Poseidon tree of 2^19 leaves (`build_sharded_tree`, hasher
+  "poseidon", one `poseidon_node_layer` launch a layer) whose layers must
+  equal the single-device tree's;
 - the Poseidon-tree flagship: the same circuit and base setup, Poseidon
   transcript, classic-Poseidon trees (tree hasher "poseidon", entries
-  `poseidon_leaf_hashes` / `poseidon_node_layer`), LDE 8, cap 16: its
+  `poseidon_leaf_hashes` / `poseidon_node_layers`), LDE 8, cap 16: its
   device setup, one cold and one warm prove with the device transcript,
   each held to `boojum_tpu_torch/data/flagship_poseidon_proof_digest.json`
   and with its synchronizing calls counted (the warm prove at most 3), one
   prove with its torch ops counted by stage, and the peak device memory;
   the proves must launch the two tree entries, `ntt_stage`,
   `sha256_witness` and `poseidon_sponge`, and no Poseidon2 tree entry and
-  no plain version;
+  no plain version, and no prove may make more than 16 Poseidon node
+  launches;
 - the non-recursive flagship: the same circuit in the reference's own
   non-recursive configuration, the Blake2s transcript (on the host) and
   Blake2s trees (K8), LDE 8, cap 16, security 100, no PoW: setup, one cold
@@ -158,6 +166,7 @@ CUDA or nvidia-smi is unavailable or any phase fails.
 
 import collections
 import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -197,10 +206,17 @@ MAX_SYNCS = {"device": 3, "host": 12}
 SHARDED_WARM_PROVES = 1
 K6_REPLACES = "boojum_tpu/prover/device_transcript.py:87"
 # the classic-Poseidon tree entries of csrc/poseidon.cu replace the batched
-# jnp sponge behind the reference's host AlgebraicMerkleTree
-PTREE_NAMES = {"leaf": "poseidon_leaf_hashes", "node": "poseidon_node_layer"}
+# jnp sponge behind the reference's host AlgebraicMerkleTree; by launch
+# shape: ("leaf", k, m), ("nodes", m, levels) (a tree's layers in one or two
+# launches) and ("node", m) (a layer, the sharded trees')
+PTREE_NAMES = {"leaf": "poseidon_leaf_hashes", "nodes": "poseidon_node_layers",
+               "node": "poseidon_node_layer"}
 PTREE_REPLACES = {"leaf": "boojum_tpu/hash/sponge.py:116",
+                  "nodes": "boojum_tpu/hash/sponge.py:147",
                   "node": "boojum_tpu/hash/sponge.py:147"}
+# the trees of a Poseidon-tree prove, cap 16: its three 2^19-leaf oracles
+# and the FRI layers (the 2^4-leaf one has no node layer above its cap)
+PTREE_PROVE_TREES = (1 << 19,) * 3 + (1 << 16, 1 << 13, 1 << 10, 1 << 7)
 # warm proves of the Poseidon-tree flagship after its cold prove
 PTREE_WARM_PROVES = 1
 # the compiled JAX loops that K8 (Blake2s) and K9 (Keccak-256) replace
@@ -227,8 +243,9 @@ KECCAK_WARM_PROVES = 1
 # general-purpose variant (the specialized one took two before)
 LOOKUP_VARIANTS = (("specialized", "lookup_heavy_proof_digest.json", 1),
                    ("general", "lookup_heavy_general_proof_digest.json", 1))
-# most `*_node_layers` launches a byte-tree prove may make: it makes 10, two
-# for each 2^19-leaf tree and one for the 2^16, 2^13, 2^10 and 2^7 ones
+# most `*_node_layers` launches a byte-tree or Poseidon-tree prove may make:
+# it makes 10, two for each 2^19-leaf tree and one for the 2^16, 2^13, 2^10
+# and 2^7 ones
 MAX_NODE_LAUNCHES = 16
 # Dependency-chain model of the two sequential kernels (not a measured
 # bound): a SHA-256 round's critical path, e -> s1 -> tmp1 -> tmp1w -> te,
@@ -347,7 +364,8 @@ def sass_report():
     for lib in ("sha256_witness", "poseidon"):
         for kname, instrs in sorted(
                 cuda_build.sass(cuda_build._lib_path(lib)).items()):
-            if "leaf_kernel" in kname or "node_kernel" in kname:
+            if any(t in kname for t in ("leaf_kernel", "node_kernel",
+                                        "nodes_kernel")):
                 continue  # the tree entries: ptree_sass
             s = cuda_build.sass_summary(instrs)
             short = next((t for t in ("absorb_kernel", "permute_kernel",
@@ -737,31 +755,39 @@ def check_poseidon_sponge(rng):
 
 
 # ---------------------------------------------------------------------------
-# the classic-Poseidon tree entries (poseidon_leaf_hashes, poseidon_node_layer)
+# the classic-Poseidon tree entries (poseidon_leaf_hashes,
+# poseidon_node_layers, poseidon_node_layer)
 # ---------------------------------------------------------------------------
 
-# entry ("leaf" or "node") -> {"fixed": counts, "per_perm": counts}, from
-# SASS, by pipe as `pipe_counts` gives them
+# entry ("leaf", "nodes" or "node") -> {"fixed": counts, "per_perm": counts},
+# from SASS, by pipe as `pipe_counts` gives them
 PTREE_SASS = {}
+PTREE_KERNELS = {"leaf_kernel": "leaf", "nodes_kernel": "nodes",
+                 "node_kernel": "node"}
 
 
-def ptree_sass():
-    """SASS of the two tree entries of `csrc/poseidon.cu`, split into a
-    fixed part and a part a permutation: the innermost loops are the three
-    round loops (4 full, 22 partial, 4 full rounds, `P2_ROUND_TRIPS`),
-    each body counted its trips; the leaf kernel's rate-block loop holds
-    them, so a leaf permutation is that loop's body with its round loops
-    expanded and the rest is fixed; a node thread runs one permutation, so
-    its whole kernel counts as one."""
+def ptree_sass_counts(lib_path):
+    """SASS of the tree entries in a built `poseidon` library, split into a
+    fixed part and a part a permutation: {entry: {"fixed": counts,
+    "per_perm": counts, "summary": `sass_summary`}}, entry "leaf", "nodes"
+    or "node" (an older library may lack "nodes"). The innermost loops are
+    the three round loops (4 full, 22 partial, 4 full rounds,
+    `P2_ROUND_TRIPS`; the dense A_0 between them is unrolled), each body
+    counted its trips; a leaf permutation is the body of the leaf kernel's
+    rate-block loop with its round loops expanded, a `poseidon_node_layers`
+    one the body of the level loop (its loads, barriers and stores
+    included) inside the stage loop, and the rest of each is fixed; a
+    `poseidon_node_layer` thread runs one permutation, so that whole kernel
+    counts as one."""
     from boojum_tpu_torch.utils import cuda_build
 
     def comb(a, b, kb=1):
         return {p: a[p] + kb * b[p] for p in PIPES}
 
-    for kname, instrs in cuda_build.sass(
-            cuda_build._lib_path("poseidon")).items():
-        entry = "leaf" if "leaf_kernel" in kname else \
-            "node" if "node_kernel" in kname else None
+    out = {}
+    for kname, instrs in cuda_build.sass(lib_path).items():
+        entry = next((e for t, e in PTREE_KERNELS.items() if t in kname),
+                     None)
         if entry is None:
             continue
         s = cuda_build.sass_summary(instrs, cuda_build.P2_ROUND_TRIPS)
@@ -769,30 +795,57 @@ def ptree_sass():
         inner = sorted((lp for lp in loops if not any(
             o is not lp and lp["start"] <= o["start"] and o["end"] <= lp["end"]
             for o in loops)), key=lambda lp: lp["start"])
-        outer = [lp for lp in loops if lp not in inner]
-        if len(inner) != 3 or len(outer) != (entry == "leaf"):
-            raise AssertionError("sass poseidon %s_kernel: %d loops, not the "
-                                 "kernel's structure" % (entry, len(loops)))
+        outer = sorted((lp for lp in loops if lp not in inner),
+                       key=lambda lp: lp["end"] - lp["start"])
+        if len(inner) != 3 or len(outer) != {"leaf": 1, "nodes": 2,
+                                             "node": 0}[entry]:
+            raise AssertionError("sass poseidon %s: %d loops, not the "
+                                 "kernel's structure" % (kname, len(loops)))
         whole = pipe_counts(instrs)
         body = pipe_counts(instrs, outer[0]["start"], outer[0]["end"]) \
             if outer else whole
         per = body
         for t, lp in zip(cuda_build.P2_ROUND_TRIPS, inner):
             per = comb(per, pipe_counts(instrs, lp["start"], lp["end"]), t - 1)
-        fixed = comb(whole, body, -1)
-        PTREE_SASS[entry] = dict(fixed=fixed, per_perm=per)
-        log("sass poseidon %s_kernel: %d instructions, %d integer-pipe, %d "
-            "IMAD, %d loops; per permutation %s, fixed %s"
-            % (entry, s["total"], s["integer"], s["imad"], len(loops),
-               json.dumps(per), json.dumps(fixed)))
+        out[entry] = dict(fixed=comb(whole, body, -1), per_perm=per,
+                          summary=s)
+    return out
+
+
+def ptree_sass():
+    """`ptree_sass_counts` of the built library, kept in `PTREE_SASS` and
+    printed."""
+    from boojum_tpu_torch.utils import cuda_build
+    for entry, c in ptree_sass_counts(
+            cuda_build._lib_path("poseidon")).items():
+        PTREE_SASS[entry] = dict(fixed=c["fixed"], per_perm=c["per_perm"])
+        s = c["summary"]
+        log("sass poseidon %s: %d instructions, %d integer-pipe, %d IMAD, "
+            "%d loops; per permutation %s, fixed %s"
+            % (PTREE_NAMES[entry], s["total"], s["integer"], s["imad"],
+               len(s["loops"]), json.dumps(c["per_perm"]),
+               json.dumps(c["fixed"])))
 
 
 def ptree_perms(shape):
-    """(threads, permutations) of one launch: ("leaf", k, m) or ("node",
-    m)."""
+    """(threads, permutations) of one launch: ("leaf", k, m), ("nodes", m,
+    levels) (a thread a first-level parent; a permutation a parent of any
+    level) or ("node", m)."""
     if shape[0] == "leaf":
         return shape[2], shape[2] * -(-shape[1] // 8)
+    if shape[0] == "nodes":
+        return shape[1] // 2, shape[1] - (shape[1] >> shape[2])
     return shape[1] // 2, shape[1] // 2
+
+
+def ptree_bound(shape):
+    """`p2_bound`'s (the same 472 s-box multiplies a permutation, the same
+    bytes); a ("nodes", m, levels) launch the sum over its layers, bound by
+    what bounds its widest."""
+    if shape[0] == "nodes":
+        parts = [p2_bound(("node", shape[1] >> j)) for j in range(shape[2])]
+        return sum(t for t, _ in parts), parts[0][1]
+    return p2_bound(shape)
 
 
 def ptree_sass_ms(shape):
@@ -800,7 +853,7 @@ def ptree_sass_ms(shape):
     the card's issue rates: 64 thread-instructions a clock on an SM for the
     ALU pipe and for the FMA pipe each, 128 issue slots in all, whichever
     is longest; the bound from the instructions the compiled round issues,
-    beside `p2_bound`'s from the s-box multiplies alone."""
+    beside `ptree_bound`'s from the s-box multiplies alone."""
     threads, perms = ptree_perms(shape)
     c = PTREE_SASS[shape[0]]
     counts = {p: threads * c["fixed"][p] + perms * c["per_perm"][p]
@@ -809,22 +862,41 @@ def ptree_sass_ms(shape):
                counts["all"] / 2) / H100_INT_PER_S * 1e3
 
 
+def check_ptree_nodes(cur, cap, timed=False):
+    """`poseidon.node_layers` against the plain chain (`check_tree_nodes`)."""
+    from boojum_tpu_torch.hash import poseidon
+    return check_tree_nodes(
+        "poseidon_node_layers", lambda: poseidon.node_layers(cur, cap),
+        lambda: poseidon.node_layers_plain(cur, cap),
+        lambda: poseidon.NODE_LAYERS_LAUNCHES, cur, cap, timed)
+
+
 def time_ptree(rng, shape, plain=False):
-    """A tree entry at one shape, ("leaf", k, m) or ("node", m): bit-equal
-    to its plain version, then timed; the bound is `p2_bound`'s (the same
-    472 s-box multiplies a permutation, the same bytes)."""
+    """A tree entry at one shape, ("leaf", k, m), ("nodes", m, levels)
+    (`node_layers` of m nodes to m >> levels: one launch of a prove, or a
+    whole tree) or ("node", m): bit-equal to its plain version, then
+    timed."""
     from boojum_tpu_torch.hash import poseidon
     x = rand_field(rng, shape[1:] if shape[0] == "leaf" else (4, shape[1]))
-    fn, plain_fn = {"leaf": (poseidon.leaf_hashes, poseidon.leaf_hashes_plain),
-                    "node": (poseidon.node_layer, poseidon.node_layer_plain)
-                    }[shape[0]]
-    want, plain_ms = plain_run(lambda: plain_fn(x), plain)
-    err = require_equal(fn(x), want, "%s %s" % (PTREE_NAMES[shape[0]],
-                                                shape[1:]))
-    res = dict(err=err, ms=cuda_ms(lambda: fn(x), 20))
+    if shape[0] == "nodes":
+        cap = shape[1] >> shape[2]
+
+        def fn():
+            return poseidon.node_layers(x, cap)
+        err, plain_ms = check_ptree_nodes(x, cap, plain)
+    else:
+        fn, plain_fn = {
+            "leaf": (poseidon.leaf_hashes, poseidon.leaf_hashes_plain),
+            "node": (poseidon.node_layer, poseidon.node_layer_plain)
+        }[shape[0]]
+        want, plain_ms = plain_run(lambda: plain_fn(x), plain)
+        err = require_equal(fn(x), want, "%s %s" % (PTREE_NAMES[shape[0]],
+                                                    shape[1:]))
+        fn = functools.partial(fn, x)
+    res = dict(err=err, ms=cuda_ms(fn, 20))
     if plain:
         res["plain_ms"] = plain_ms
-    res["bound_ms"], res["bound_by"] = p2_bound(shape)
+    res["bound_ms"], res["bound_by"] = ptree_bound(shape)
     res["sass_ms"] = ptree_sass_ms(shape)
     _, perms = ptree_perms(shape)
     log("%s %s: bit-equal, %.4f ms kernel (%.1f M perm/s%s), bound %.4f ms "
@@ -842,10 +914,13 @@ def check_poseidon_tree(rng):
     """The classic-Poseidon tree entries bit-equal to their plain versions:
     leaves at k = 1, 7, 8, 9, 16, 93 (a partial block, whole blocks, one
     more element, the flagship's witness width) on m = 1000 + k and on a
-    strided view; node layers at m = 2, 32, 1000; both rows timed with
-    their plain versions at (93, 2^19) and m = 2^19. Every shape of a
-    prove is checked and timed again in `per_prove_costs`. Returns {entry
-    name: (largest error, timing of the row's shape)}."""
+    strided view; `poseidon_node_layers` against the plain chain at m = 2,
+    32, 1000 (cap 1) and at every tree of a prove (`PTREE_PROVE_TREES`, cap
+    16: three of 2^19 leaves, in two launches each); `poseidon_node_layer`
+    at m = 2, 32, 1000; each entry's row timed with its plain version at
+    (93, 2^19), a 2^19-leaf tree to cap 16 and m = 2^19. Every launch shape
+    of a prove is checked and timed again in `per_prove_costs`. Returns
+    {entry name: (largest error, timing of the row's shape)}."""
     from boojum_tpu_torch.hash import poseidon
     errs = []
     for k in (1, 7, 8, 9, 16, 93):
@@ -859,6 +934,11 @@ def check_poseidon_tree(rng):
                               "poseidon_leaf_hashes on a strided view"))
     t = time_ptree(rng, ("leaf", 93, 1 << 19), plain=True)
     out = {"poseidon_leaf_hashes": (max(errs + [t["err"]]), t)}
+    errs = [check_ptree_nodes(rand_field(rng, (4, m)), cap)[0]
+            for m, cap in [(2, 1), (32, 1), (1000, 1)]
+            + [(m, 16) for m in PTREE_PROVE_TREES]]
+    t = time_ptree(rng, ("nodes", 1 << 19, 15), plain=True)
+    out["poseidon_node_layers"] = (max(errs + [t["err"]]), t)
     errs = []
     for m in (2, 32, 1000):
         cur = rand_field(rng, (4, m))
@@ -868,7 +948,10 @@ def check_poseidon_tree(rng):
     t = time_ptree(rng, ("node", 1 << 19), plain=True)
     out["poseidon_node_layer"] = (max(errs + [t["err"]]), t)
     log("poseidon tree: leaf hashes bit-equal at k = 1, 7, 8, 9, 16, 93 and a "
-        "strided (9, 2^11) view; node layers at m = 2, 32, 1000 and 2^19")
+        "strided (9, 2^11) view; node_layers bit-equal to the plain chain at "
+        "m = 2, 32, 1000 (cap 1) and at the trees of a prove %s (cap 16), and "
+        "on a 2^19-leaf tree to cap 16; node_layer at m = 2, 32, 1000 and "
+        "2^19" % (list(PTREE_PROVE_TREES),))
     return out
 
 
@@ -1026,18 +1109,18 @@ def byte_input(rng, shape):
                                     dtype=np.uint64), "cuda")
 
 
-def check_node_layers(algo, cur, cap, timed=False):
-    """`node_layers` bit-equal to the plain chain, layer by layer, in the
-    launches `node_launches` plans; returns the error and, with ``timed``,
-    the plain chain's time (`plain_run`)."""
+def check_tree_nodes(entry, run, plain, launched, cur, cap, timed=False):
+    """A tree's node-layers entry (`run()`, its layer list) bit-equal to the
+    plain chain (`plain()`), layer by layer, in the launches `node_launches`
+    plans (`launched()` reads the entry's count); returns the error and,
+    with ``timed``, the plain chain's time (`plain_run`)."""
     import torch
     from boojum_tpu_torch.hash import device_bytes_hash as dbh
-    before = dbh.NODE_LAUNCHES[algo]
-    got = dbh.node_layers(cur, algo, cap)
-    launches = dbh.NODE_LAUNCHES[algo] - before
-    want, plain_ms = plain_run(lambda: dbh.node_layers_plain(cur, algo, cap),
-                               timed)
-    what = "%s node_layers m=%d cap=%d" % (algo, cur.shape[1], cap)
+    before = launched()
+    got = run()
+    launches = launched() - before
+    want, plain_ms = plain_run(plain, timed)
+    what = "%s m=%d cap=%d" % (entry, cur.shape[1], cap)
     if [g.shape for g in got] != [w.shape for w in want] or \
             launches != len(dbh.node_launches(cur.shape[1], len(want))):
         raise AssertionError("%s: layers %s, %d launches" % (
@@ -1046,6 +1129,16 @@ def check_node_layers(algo, cur, cap, timed=False):
         return 0.0, plain_ms
     flat = [torch.cat([t.reshape(-1) for t in ts]) for ts in (got, want)]
     return require_equal(flat[0], flat[1], what), plain_ms
+
+
+def check_node_layers(algo, cur, cap, timed=False):
+    """`device_bytes_hash.node_layers` against the plain chain
+    (`check_tree_nodes`)."""
+    from boojum_tpu_torch.hash import device_bytes_hash as dbh
+    return check_tree_nodes(
+        "%s node_layers" % algo, lambda: dbh.node_layers(cur, algo, cap),
+        lambda: dbh.node_layers_plain(cur, algo, cap),
+        lambda: dbh.NODE_LAUNCHES[algo], cur, cap, timed)
 
 
 def time_byte(rng, algo, shape, plain=False):
@@ -1145,6 +1238,7 @@ def reset_counts():
             mod.SHAPES.clear()
     pp.LEAF_LAUNCHES = pp.NODE_LAUNCHES = 0
     poseidon.LEAF_LAUNCHES = poseidon.NODE_LAUNCHES = 0
+    poseidon.NODE_LAYERS_LAUNCHES = 0
     pn.TORCH_TWIDDLE_MULS = 0
     dbh.LEAF_LAUNCHES.clear()
     dbh.NODE_LAUNCHES.clear()
@@ -1168,6 +1262,7 @@ def read_counts():
                 poseidon_sponge=poseidon.LAUNCHES,
                 poseidon_leaf_hashes=poseidon.LEAF_LAUNCHES,
                 poseidon_node_layer=poseidon.NODE_LAUNCHES,
+                poseidon_node_layers=poseidon.NODE_LAYERS_LAUNCHES,
                 blake2s_leaf_hashes=dbh.LEAF_LAUNCHES["blake2s"],
                 blake2s_node_layers=dbh.NODE_LAUNCHES["blake2s"],
                 keccak256_leaf_hashes=dbh.LEAF_LAUNCHES["keccak256"],
@@ -1558,16 +1653,17 @@ def poseidon_tree_flagship(ctx):
     """The flagship circuit (the circuit and base setup of `flagship`) with
     classic-Poseidon trees: the Poseidon transcript (the device one, by
     default on the card), tree hasher "poseidon" (`poseidon_leaf_hashes`,
-    `poseidon_node_layer`), LDE 8, cap 16, security 100, no PoW. Its
+    `poseidon_node_layers`), LDE 8, cap 16, security 100, no PoW. Its
     device setup, one cold and PTREE_WARM_PROVES warm proves, each held to
     `flagship_poseidon_proof_digest.json` and with its synchronizing calls
-    counted (a warm prove at most MAX_SYNCS["device"]), then one prove with
-    its torch ops counted by stage; peak device memory. Every prove must
-    take the device witness program and launch the tree entries,
-    `ntt_stage`, `sha256_witness` and `poseidon_sponge`, and neither a
-    Poseidon2 tree entry nor a plain version. Returns the counts of the
-    path, the launches by shape of its setup and of its last warm prove,
-    and its VK and proof."""
+    counted (a warm prove at most MAX_SYNCS["device"]) and its Poseidon
+    node launches (at most MAX_NODE_LAUNCHES), then one prove with its
+    torch ops counted by stage; peak device memory. Every prove must take
+    the device witness program and launch the tree entries, `ntt_stage`,
+    `sha256_witness` and `poseidon_sponge`, and neither a Poseidon2 tree
+    entry nor a plain version. Returns the counts of the path, the launches
+    by shape of its setup and of its last warm prove, and its VK and
+    proof."""
     import torch
     from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
                                          create_device_setup)
@@ -1616,6 +1712,16 @@ def poseidon_tree_flagship(ctx):
             raise AssertionError("a warm %s prove made %d synchronizing "
                                  "calls, more than %d"
                                  % (name, syncs, MAX_SYNCS["device"]))
+        nodes = sum(n for sh, n in shapes[2].items()
+                    if sh[0] in ("node", "nodes"))
+        log("%s %s prove: %d Poseidon node launches (at most %d): %s"
+            % (name, "warm" if i else "cold", nodes, MAX_NODE_LAUNCHES,
+               json.dumps(sorted((sh, n) for sh, n in shapes[2].items()
+                                 if sh[0] in ("node", "nodes")))))
+        if nodes > MAX_NODE_LAUNCHES:
+            raise AssertionError("a %s prove made %d Poseidon node "
+                                 "launches, more than %d"
+                                 % (name, nodes, MAX_NODE_LAUNCHES))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     counted, rows = op_counted_prove(lambda on_stage: prover.prove(
         "poseidon", "poseidon", on_stage=on_stage))
@@ -1629,15 +1735,15 @@ def poseidon_tree_flagship(ctx):
             for e in PTREE_NAMES}
     log("%s: cold prove %.4f s, warm %s s; peak device memory %.2f GB; %d "
         "torch ops a prove; a warm prove's launches: %d "
-        "poseidon_leaf_hashes %s, %d poseidon_node_layer, %d ntt_stage, %d "
+        "poseidon_leaf_hashes %s, %d poseidon_node_layers, %d ntt_stage, %d "
         "poseidon_sponge; launches (setup + %d proves): %s"
         % (name, times[0], ", ".join("%.4f" % t for t in times[1:]),
            peak_gb, ops, tree["leaf"], json.dumps(sorted(
                (sh[1:], n) for sh, n in k6.items() if sh[0] == "leaf")),
-           tree["node"], sum(k1.values()),
+           tree["nodes"], sum(k1.values()),
            sum(n for sh, n in k6.items() if sh[0] not in PTREE_NAMES),
            2 + PTREE_WARM_PROVES, json.dumps(counts)))
-    for kernel in ("ntt_stage", "poseidon_leaf_hashes", "poseidon_node_layer",
+    for kernel in ("ntt_stage", "poseidon_leaf_hashes", "poseidon_node_layers",
                    "sha256_witness", "poseidon_sponge"):
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the %s path"
@@ -1683,6 +1789,7 @@ def sharded_flagship(ctx):
     The group is destroyed at the end, so later phases run without it.
     Returns the counts of the path and the VK and last proof."""
     import shutil
+    import numpy as np
     import torch
     import torch.distributed as dist
     from boojum_tpu_torch.parallel import make_mesh, sharding
@@ -1693,6 +1800,11 @@ def sharded_flagship(ctx):
     ref = ctx["ref"]
     sha = ref["proof_json_sha256"]
     cfg = ProofConfig(**ref["config"])
+    from boojum_tpu_torch.prover.device_merkle import build_device_tree
+    # a classic-Poseidon tree of 2^19 leaves: the single-device layers
+    # first, outside the path's counts
+    ptree_cols = rand_field(np.random.default_rng(19), (8, 1 << 19))
+    ptree_want = build_device_tree(ptree_cols, 16, "poseidon").layers
     store_dir = nccl_world()
     try:
         mesh = make_mesh()
@@ -1741,6 +1853,17 @@ def sharded_flagship(ctx):
                 raise AssertionError("a warm %s prove made %d synchronizing "
                                      "calls, more than %d"
                                      % (name, syncs, MAX_SYNCS["host"]))
+        before = read_counts()["poseidon_node_layer"]
+        ptree = sharding.build_sharded_tree(mesh, ptree_cols, 16, "poseidon")
+        launched = read_counts()["poseidon_node_layer"] - before
+        if len(ptree.layers) != len(ptree_want) or not all(
+                torch.equal(a, b) for a, b in zip(ptree.layers, ptree_want)):
+            raise AssertionError("the sharded classic-Poseidon tree differs "
+                                 "from the single-device one")
+        log("%s: a sharded classic-Poseidon tree of 2^19 leaves, cap 16: "
+            "its %d layers equal the single-device tree's; %d "
+            "poseidon_node_layer launches" % (name, len(ptree.layers),
+                                              launched))
         counts = read_counts()
     finally:
         dist.destroy_process_group()
@@ -1753,7 +1876,7 @@ def sharded_flagship(ctx):
            counts["poseidon2_leaf_hashes"], counts["poseidon2_node_layer"],
            json.dumps(counts)))
     for kernel in ("ntt_stage", "poseidon2_leaf_hashes",
-                   "poseidon2_node_layer"):
+                   "poseidon2_node_layer", "poseidon_node_layer"):
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the %s path"
                                  % (kernel, name))

@@ -15,7 +15,7 @@ given against the unprofiled warm prove's wall time.
 ``--config flagship`` (the default): the 8 kB SHA-256 circuit
 (`flagship_proof_digest.json`). ``flagship_poseidon``: the same circuit
 with classic-Poseidon trees (`flagship_poseidon_proof_digest.json`: tree
-hasher "poseidon", kernels `poseidon_leaf_hashes` / `poseidon_node_layer`).
+hasher "poseidon", kernels `poseidon_leaf_hashes` / `poseidon_node_layers`).
 ``keccak256``: the 1 kB Keccak-256 circuit
 (`keccak256_1kB_proof_digest.json`). ``recursion_outer``: the outer proof
 of the recursion configuration (`recursion_outer_proof_digest.json`; its
@@ -138,6 +138,7 @@ def main():
                     poseidon_sponge=poseidon.LAUNCHES,
                     poseidon_leaf_hashes=poseidon.LEAF_LAUNCHES,
                     poseidon_node_layer=poseidon.NODE_LAUNCHES,
+                    poseidon_node_layers=poseidon.NODE_LAYERS_LAUNCHES,
                     sha256_witness=sw.LAUNCHES)
 
     def check(proof):

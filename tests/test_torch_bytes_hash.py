@@ -142,25 +142,25 @@ def _cuda_int(path, name):
 
 
 def _emulate_launch(src, src_off, out, at, m, levels, tickets, threads, stage,
-                    node, writes, rng):
-    """One launch of `<algo>_node_layers` as csrc/byte_tree.cuh schedules
-    it, on flat u64 arrays: `src` holds the (8, m) input layer from
-    `src_off`, `out` receives the `levels` layers from `at`, `tickets` are
-    the launch's hand-on counters;
-    `node` hashes (8, 2p) sibling pairs into (8, p) parents; `writes`
+                    node, writes, rng, words=8):
+    """One launch of a tree's `*_node_layers` entry as csrc/byte_tree.cuh
+    schedules it, on flat u64 arrays: `src` holds the (words, m) input
+    layer from `src_off`, `out` receives the `levels` layers from `at`,
+    `tickets` are the launch's hand-on counters;
+    `node` hashes (words, 2p) sibling pairs into (words, p) parents; `writes`
     counts the stores to each element of `out`. The blocks of a stage take
     their tickets in an order drawn from `rng`; a block that goes on reads
     only digests its own group wrote."""
     group = 1 << stage  # 2 THREADS >> STAGE digests a block, 2 THREADS a group
     assert threads >> (stage - 1) >= 32  # a full stage's levels fill warps
     assert 1 <= levels < 63 and m >= 2 and m % (1 << levels) == 0  # valid
-    planes = np.arange(8)
+    planes = np.arange(words)
     owner = np.full(len(out), -1)  # the block of the stage that wrote it
     width, done, ticket_off = m, 0, 0
     blocks = -(-m // (2 * threads))  # byte_tree::grid: stage 0's blocks
     while True:
         assert blocks == -(-width // (2 * threads))
-        slot = np.zeros((blocks, 8, threads), np.uint64)  # slot[8][T] a block
+        slot = np.zeros((blocks, words, threads), np.uint64)  # a block's
         n = [min(2 * threads, width - 2 * threads * b) for b in range(blocks)]
         w = width
         for j in range(min(stage, levels - done)):
@@ -182,7 +182,7 @@ def _emulate_launch(src, src_off, out, at, m, levels, tickets, threads, stage,
                                       slot[b, :, 2 * t + 1]))
                     who.append((b, first, t))
             # __syncthreads(): every child is read before a slot is written
-            children = np.empty((8, 2 * len(pairs)), np.uint64)
+            children = np.empty((words, 2 * len(pairs)), np.uint64)
             children[:, 0::2] = np.stack([lr[0] for lr in pairs], 1)
             children[:, 1::2] = np.stack([lr[1] for lr in pairs], 1)
             parents = gl.to_u64(node(gl.from_u64(children)))
@@ -192,9 +192,9 @@ def _emulate_launch(src, src_off, out, at, m, levels, tickets, threads, stage,
                 out[a] = parents[:, i]
                 owner[a] = b
                 writes[a] += 1
-            # __syncthreads(); src = out; out += 8 * half
+            # __syncthreads(); src = out; out += WORDS * half
             src, src_off = out, at
-            at += 8 * half
+            at += words * half
             w = half
             n = [nb >> 1 for nb in n]
         done += min(stage, levels - done)
@@ -227,24 +227,25 @@ def _tickets(m, levels, threads, stage):
     return n
 
 
-def _emulate_node_layers(cur, algo, cap, threads, stage, rng, plan=None):
+def _emulate_node_layers(cur, node, cap, threads, stage, rng, plan=None):
     """`node_layers`' CUDA branch with its launches emulated: the layers are
     views of `node_buffer`'s one buffer, each launch of ``plan`` (by
     default `node_launches`') reads the last layer the one before it wrote
     and takes the next slice of the hand-on counters (`node_tickets` of
     them at the kernel's own block size; counted here for ``threads``).
-    Returns the layers, the store count of every element, and the counters
-    after the launches."""
-    m = cur.shape[1]
+    ``node`` is the plain node hash of a (words, 2p) layer. Returns the
+    layers, the store count of every element, and the counters after the
+    launches."""
+    words, m = cur.shape
     widths = dbh.node_widths(m, cap)
-    layers = dbh.node_buffer(cur, widths)
+    layers = dbh.node_buffer(cur, widths, words)
     if not widths:
         return [], np.zeros(0, int), np.zeros(0, int)
     if plan is None:
         plan = dbh.node_launches(m, len(widths))
     assert sum(lv for _, lv in plan) == len(widths)
     assert layers[0].storage_offset() == 0
-    total = sum(8 * w for w in widths)
+    total = sum(words * w for w in widths)
     buf = np.zeros(total, np.uint64)
     writes = np.zeros(total, int)
     counts = [_tickets(w, lv, threads, stage) for w, lv in plan]
@@ -257,13 +258,13 @@ def _emulate_node_layers(cur, algo, cap, threads, stage, rng, plan=None):
         used = _emulate_launch(src, src_off, buf,
                                layers[done].storage_offset(), w, levels,
                                tickets[first:first + n], threads, stage,
-                               dbh._PLAIN[algo][1], writes, rng)
+                               node, writes, rng, words)
         assert used == n
         done += levels
         first += n
         src, src_off = buf, layers[done - 1].storage_offset()
-    return [gl.from_u64(buf[v.storage_offset():][:8 * v.shape[1]]
-                        .reshape(8, v.shape[1])) for v in layers], \
+    return [gl.from_u64(buf[v.storage_offset():][:words * v.shape[1]]
+                        .reshape(words, v.shape[1])) for v in layers], \
         writes, tickets
 
 
@@ -317,7 +318,7 @@ def test_kernel_schedule_matches_plain_chain(algo, m, cap, threads, split):
     n = len(dbh.node_widths(m, cap))
     plan = [(m, stage), (m >> stage, n - stage)] if split else None
     got, writes, tickets = _emulate_node_layers(
-        cur, algo, cap, threads or dbh.NODE_THREADS, stage,
+        cur, dbh._PLAIN[algo][1], cap, threads or dbh.NODE_THREADS, stage,
         np.random.default_rng(m), plan)
     assert (writes == 1).all()
     assert (tickets >= 1).all() and (tickets <= dbh.NODE_GROUP).all()

@@ -5,8 +5,9 @@ of the redesigned kernels bit-equal to its plain version on the card
 every template instance, with and without its cross twiddle; the three
 Poseidon2 entries at the trees' shapes; the SHA-256 witness chain at 1 and 3
 blocks; the Poseidon sponge's absorb and permute; the classic-Poseidon
-tree entries at the block-boundary widths and on a strided view; the
-Blake2s and
+tree entries at the block-boundary widths and on a strided view, and its
+node-layers entry against the plain per-layer chain across the two-launch
+split; the Blake2s and
 Keccak-256 leaf entries at the block-boundary widths and the flagship's
 widest leaf, and their node-layers entries against the plain per-layer
 chain), the device witness program of a small SHA-256
@@ -196,6 +197,25 @@ def test_poseidon_leaf_hashes_equal_plain(cuda, k, m):
 def test_poseidon_node_layer_equals_plain(cuda, m):
     cur = _rand(cuda, m, (4, m))
     assert torch.equal(poseidon.node_layer(cur), poseidon.node_layer_plain(cur))
+
+
+@pytest.mark.parametrize("m,cap", [(2, 1), (1000, 1), (1 << 12, 16),
+                                   (1 << 17, 1), (1 << 17, 16), (1 << 18, 1),
+                                   (1 << 18, 16), (16, 16)])
+def test_poseidon_node_layers_equal_plain(cuda, m, cap):
+    """A tree's node layers against the plain per-layer chain, in the
+    launches `node_launches` plans: one a tree up to `NODE_SPLIT` = 2^17
+    nodes, two above it; 1000 stops at the odd width 125; 16 at cap 16 has
+    none."""
+    cur = _rand(cuda, m, (4, m))
+    launches = poseidon.NODE_LAYERS_LAUNCHES
+    got = poseidon.node_layers(cur, cap)
+    assert poseidon.NODE_LAYERS_LAUNCHES - launches == \
+        len(dbh.node_launches(m, len(got)))
+    want = poseidon.node_layers_plain(cur, cap)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("algo", ["blake2s", "keccak256"])
