@@ -43,6 +43,17 @@
 // rest (measured faster there for K8 and K9;
 // device_bytes_hash.node_launches, which the Poseidon tree shares).
 //
+// Narrow levels. A node hash may opt in to hashing one state on LANES
+// neighbouring threads (`static constexpr int LANES` = WORDS, and
+// `Word lanes(left, right, lane)`: lane k holds word k of each child and
+// returns word k of the parent; every lane of the warp calls it, so that
+// its warp shuffles take the whole warp). Then at a level where a block has
+// at most THREADS / LANES parents, thread t hashes parent t / LANES as lane
+// t % LANES, reading word t % LANES of the pair and writing that word of
+// the parent (a warp with some such threads runs whole, its other lanes on
+// zeros, and stores nothing of theirs); every other level, and every node
+// hash without LANES, runs as above.
+//
 // Every level is written out: the query phase reads every layer. The
 // pointers are not __restrict__: a stage reads the layer the one before it
 // wrote through `out`.
@@ -78,6 +89,53 @@ struct Pair<uint64_t> {
   using type = ulonglong2;
 };
 
+// LANES of a node hash: its own, or 1 when it does not opt in.
+template <typename Hash, typename = void>
+struct LanesOf {
+  static constexpr int value = 1;
+};
+template <typename Hash>
+struct LanesOf<Hash, decltype((void)Hash::LANES)> {
+  static constexpr int value = Hash::LANES;
+};
+
+// A narrow level, the j-th of a stage (see "Narrow levels"): thread
+// t < parents * LANES hashes parent t / LANES as lane k = t % LANES, from
+// word k of its children (in the stage's input layer `src` of w digests
+// from `first`, or in the shared slots) into word k of slot t / LANES and
+// of the layer `out` (half = w / 2 digests).
+template <typename Hash, typename Word = typename Hash::Word>
+__device__ __forceinline__ void narrow_level(
+    const Hash& hash, Word (&slot)[Hash::WORDS][THREADS], const uint64_t* src,
+    uint64_t* out, long long w, long long half, long long first, int j,
+    int parents, int t) {
+  constexpr int LANES = Hash::LANES;
+  const int q = t / LANES, k = t % LANES;
+  const bool hashes = t < parents * LANES;
+  typename Pair<Word>::type pair = {0, 0};
+  if (hashes) {
+    if (j == 0) {
+      const ulonglong2 v = __ldcg(reinterpret_cast<const ulonglong2*>(
+          src + k * w + first) + q);
+      pair = {(Word)v.x, (Word)v.y};
+    } else {
+      pair = *reinterpret_cast<const typename Pair<Word>::type*>(
+          &slot[k][2 * q]);
+    }
+  }
+  __syncthreads();
+  // the warp has a parent, so all of it takes part; a warp vote, so that
+  // the compiler knows the warp converged (no per-shuffle collectives)
+  if (__any_sync(~0u, hashes)) {
+    const Word h = hash.lanes(pair.x, pair.y, k);
+    if (hashes) {
+      slot[k][q] = h;
+      out[k * half + (first >> (j + 1)) + q] = h;
+    }
+  }
+  __syncthreads();
+}
+
 // `hash(in, out)` is the node hash: in = left's WORDS words then right's,
 // out = the parent's WORDS words.
 template <typename Hash>
@@ -85,6 +143,8 @@ __device__ __forceinline__ void node_tree(const uint64_t* cur, uint64_t* out,
                                           long long m, int levels,
                                           unsigned* tickets, Hash hash) {
   constexpr int WORDS = Hash::WORDS;
+  constexpr int LANES = LanesOf<Hash>::value;
+  static_assert(LANES == 1 || LANES == WORDS, "a lane holds one word");
   using Word = typename Hash::Word;
   __shared__ __align__(16) Word slot[WORDS][THREADS];
   __shared__ bool goes_on;
@@ -103,6 +163,16 @@ __device__ __forceinline__ void node_tree(const uint64_t* cur, uint64_t* out,
     for (int j = 0; j < stage; ++j) {
       const int parents = n >> 1;
       const long long half = w >> 1;
+      if constexpr (LANES > 1) {
+        if (parents * LANES <= THREADS) {
+          narrow_level(hash, slot, src, out, w, half, first, j, parents, t);
+          src = out;
+          out += WORDS * half;
+          w = half;
+          n = parents;
+          continue;
+        }
+      }
       Word in[2 * WORDS];
       if (t < parents) {
         if (j == 0) {

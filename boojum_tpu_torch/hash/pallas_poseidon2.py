@@ -11,12 +11,16 @@ of `boojum_tpu/prover/device_merkle.py` around it).
   absorption of the k/8 rate blocks of each column (entry
   ``poseidon2_leaf_hashes``; the kernel keeps the state in registers between
   blocks and reads the rows past k as zero, as the padding to the rate does);
+- `node_layers`: (4, m) -> every node layer above it down to the cap, one
+  launch a tree, two above `device_bytes_hash.NODE_SPLIT` nodes (entry
+  ``poseidon2_node_layers``, ``csrc/byte_tree.cuh``'s schedule; the trees
+  of `prover.device_merkle.build_device_tree`);
 - `node_layer`: (4, m) -> (4, m/2), the hash of each sibling pair (entry
-  ``poseidon2_node_layer``).
+  ``poseidon2_node_layer``; the sharded trees' layers).
 
 On a CPU tensor each runs its plain torch version (`permutation_plain`,
-`leaf_hashes_plain`, `node_layer_plain`); the TPU's minimum-batch threshold
-is gone. Both give the same canonical outputs.
+`leaf_hashes_plain`, `node_layers_plain`, `node_layer_plain`); the TPU's
+minimum-batch threshold is gone. Both give the same canonical outputs.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import collections
 import numpy as np
 import torch
 
+from . import device_bytes_hash as dbh
 from . import poseidon2 as p2
 from . import sponge
 
@@ -36,11 +41,33 @@ CAP = 4
 LAUNCHES = 0  # poseidon2_permute
 LEAF_LAUNCHES = 0
 NODE_LAUNCHES = 0
+NODE_LAYERS_LAUNCHES = 0
 PLAIN_CUDA_CALLS = 0
-# launches by (entry, shape): ("permute", B), ("leaf", k, m), ("node", m)
+# launches by (entry, shape): ("permute", B), ("leaf", k, m), ("node", m),
+# ("nodes", m, levels)
 SHAPES = collections.Counter()
 
+# csrc/poseidon2.cu's ROLL_FROM: a launch of this many one-thread
+# permutations side by side or more takes the kernel build whose full rounds
+# run their s-boxes in a rolled loop (`rolled`)
+ROLL_FROM = 1 << 16
+
 _CONSTANTS_SET = set()  # devices whose constant memory holds the tables
+
+
+def rolled(n: int) -> bool:
+    """Whether a launch of n permutations side by side takes the rolled
+    build (as the kernel's entry points pick it)."""
+    return n >= ROLL_FROM
+
+
+def node_layers_rolled(m: int, levels: int) -> bool:
+    """Whether a ``poseidon2_node_layers`` launch of ``levels`` layers above
+    m nodes takes the rolled build (one thread a state throughout): a wide
+    tree's first launch, at most one stage of `device_bytes_hash.NODE_STAGE`
+    levels; every other launch takes the unrolled build, its narrow levels
+    on 4 lanes a state."""
+    return rolled(m // 2) and levels <= dbh.NODE_STAGE
 
 
 def _count_plain(t: torch.Tensor):
@@ -67,6 +94,16 @@ def node_layer_plain(cur: torch.Tensor) -> torch.Tensor:
     """The plain torch version of ``poseidon2_node_layer``."""
     _count_plain(cur)
     return sponge.hash_nodes(cur[:, 0::2], cur[:, 1::2], "poseidon2")
+
+
+def node_layers_plain(cur: torch.Tensor, cap_size: int) -> list:
+    """The plain torch version of ``poseidon2_node_layers``: one
+    `node_layer_plain` a layer."""
+    layers = []
+    for _ in dbh.node_widths(cur.shape[1], cap_size):
+        cur = node_layer_plain(cur)
+        layers.append(cur)
+    return layers
 
 
 def _lib(device):
@@ -159,3 +196,27 @@ def node_layer(cur: torch.Tensor) -> torch.Tensor:
     NODE_LAUNCHES += 1
     SHAPES[("node", m)] += 1
     return out
+
+
+def node_layers(cur: torch.Tensor, cap_size: int) -> list:
+    """(4, m) canonical nodes -> the node layers above them, (4, m/2),
+    (4, m/4), ..., down to ``cap_size`` nodes or to the first odd width. On
+    a CUDA tensor the launches of ``poseidon2_node_layers`` that
+    `device_bytes_hash.node_launches` plans (one a tree, two above
+    `device_bytes_hash.NODE_SPLIT` nodes) compute them all into one buffer
+    (each layer a (4, m_l) view into it)."""
+    _check(cur, "the node layer", CAP)
+    if cur.device.type == "cpu":
+        return node_layers_plain(cur, cap_size)
+    widths = dbh.node_widths(cur.shape[1], cap_size)
+    if not widths:
+        return []
+
+    def counted(m, levels):
+        global NODE_LAYERS_LAUNCHES
+        NODE_LAYERS_LAUNCHES += 1
+        SHAPES[("nodes", m, levels)] += 1
+
+    return dbh.launch_node_layers(
+        cur, widths, _lib(cur.device).poseidon2_node_layers,
+        "poseidon2_node_layers", counted)

@@ -3,14 +3,14 @@
 
 Reference behavior: oracle construction (src/cs/oracle/merkle_tree.rs:78-176)
 and FRI folding (src/cs/implementations/fri/mod.rs:49,362). The leaf hashes
-of a Poseidon2 tree are one `pallas_poseidon2.leaf_hashes` call and each
-node layer one `pallas_poseidon2.node_layer` call (on the GPU one launch
-each of the Hopper `poseidon2_leaf_hashes` and `poseidon2_node_layer`
-kernels); a classic-Poseidon tree's are `poseidon.leaf_hashes` and
-one `poseidon.node_layers` call (one launch for its node layers, two for a
-tree above 2^17 leaves; kernels `poseidon_leaf_hashes` and
-`poseidon_node_layers`; the reference builds it on the host,
-boojum_tpu/prover/device_merkle.py:332); a Blake2s or Keccak-256 tree
+of a Poseidon2 tree are one `pallas_poseidon2.leaf_hashes` call and its
+node layers one `pallas_poseidon2.node_layers` call (on the GPU one launch
+of the Hopper `poseidon2_leaf_hashes` kernel, and one `poseidon2_node_layers`
+launch for the node layers, two for a tree above 2^17 leaves); a
+classic-Poseidon tree's are `poseidon.leaf_hashes` and one
+`poseidon.node_layers` call (kernels `poseidon_leaf_hashes` and
+`poseidon_node_layers`, launched alike; the reference builds it on the
+host, boojum_tpu/prover/device_merkle.py:332); a Blake2s or Keccak-256 tree
 (src/cs/oracle/mod.rs:179, :247) takes one `device_bytes_hash.leaf_hashes` call and one `node_layers` call
 (kernels K8 and K9: one launch for its node layers, two for a tree above
 2^17 leaves). The layers stay on the device, and only caps and queried
@@ -108,29 +108,26 @@ def _flush_alone(collector, mesh=None):
         else (FetchCollector(mesh), True)
 
 
-# the leaf and node hashes of the algebraic trees, by tree hasher
+# the leaf and node-layer hashes of the algebraic trees, by tree hasher (the
+# sharded trees hash a layer at a time)
 _ALGEBRAIC = {
     "poseidon2": (pallas_poseidon2.leaf_hashes, pallas_poseidon2.node_layer),
     "poseidon": (poseidon.leaf_hashes, poseidon.node_layer)}
+# a tree's node layers in one or two launches, by tree hasher
+_NODE_LAYERS = {"poseidon2": pallas_poseidon2.node_layers,
+                "poseidon": poseidon.node_layers}
 
 
 def build_device_tree(cols: torch.Tensor, cap_size: int,
                       hasher: str = "poseidon2") -> "DeviceTree":
     """Poseidon2 or Poseidon Merkle-cap tree of leaf columns (k, m); leaf i
-    is column i. A Poseidon tree's node layers are views of one buffer
-    (`poseidon.node_layers`)."""
-    leaf_hashes, node_layer = _ALGEBRAIC[hasher]
-    cur = leaf_hashes(cols)
-    layers = [cur]
-    if hasher == "poseidon":
-        layers += poseidon.node_layers(cur, cap_size)
-        if layers[-1].shape[1] > cap_size:
-            raise ValueError("a node layer needs an even width, got %d"
-                             % layers[-1].shape[1])
-        return DeviceTree(layers)
-    while cur.shape[1] > cap_size:
-        cur = node_layer(cur)
-        layers.append(cur)
+    is column i. Its node layers are views of one buffer
+    (`pallas_poseidon2.node_layers`, `poseidon.node_layers`)."""
+    cur = _ALGEBRAIC[hasher][0](cols)
+    layers = [cur] + _NODE_LAYERS[hasher](cur, cap_size)
+    if layers[-1].shape[1] > cap_size:
+        raise ValueError("a node layer needs an even width, got %d"
+                         % layers[-1].shape[1])
     return DeviceTree(layers)
 
 

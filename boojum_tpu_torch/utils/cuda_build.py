@@ -41,6 +41,8 @@ _SIGNATURES = {
         # cols, out, k, m, row stride of cols, stream
         "poseidon2_leaf_hashes": [_P, _P, _I, _LL, _LL, _P],
         "poseidon2_node_layer": [_P, _P, _LL, _P],  # cur, out, m, stream
+        # cur, out, m, levels, tickets, stream
+        "poseidon2_node_layers": [_P, _P, _LL, _I, _P, _P],
     },
     "ntt_small": {
         # x, y, stage table, cross twiddle (None: no epilogue), log_n,
@@ -183,18 +185,22 @@ INT_OPCODES = {"IMAD", "IADD3", "IADD", "ISETP", "LOP3", "SHF", "SEL", "LEA",
                "USEL", "ULEA", "UISETP"}
 
 
-# Trip counts of the Poseidon2 kernels' round loops, in address order: 4 full,
-# 22 partial and 4 full rounds.
-P2_ROUND_TRIPS = (4, 22, 4)
+# Trip counts of the Poseidon2 permutation's loops in the order of their
+# start addresses: 4 full rounds, each a loop over its three blocks of 4
+# s-boxes; 22 partial rounds; 4 full rounds, again with their block loop.
+P2_ROUND_TRIPS = (4, 3, 22, 4, 3)
 
 
 def sass_summary(instrs, trips=()) -> dict:
     """Counts of one kernel's SASS: all instructions, integer-pipe ones,
     IMADs, and its loops (backward branches), each with the integer-pipe
-    instructions of its body. Given ``trips``, the trip counts of the
-    innermost loops in address order, ``integer_per_pass`` is the number of
-    integer-pipe instructions one pass through the code executes: each
-    innermost loop body ``trips`` times, every other instruction once."""
+    instructions of its body. Given ``trips``, ``integer_per_pass`` is the
+    number of integer-pipe instructions one pass through the code executes:
+    ``trips`` holds the trip counts either of the innermost loops in address
+    order (each innermost loop body counted its trips, every other
+    instruction once) or of every loop in the order of their start
+    addresses (each instruction counted the product of the trips of the
+    loops that hold it)."""
     is_int = [op.split(".")[0] in INT_OPCODES for _, op, _ in instrs]
     loops = []
     for addr, op, text in instrs:
@@ -211,11 +217,22 @@ def sass_summary(instrs, trips=()) -> dict:
         inner = sorted((lp for lp in loops if not any(
             o is not lp and lp["start"] <= o["start"] and o["end"] <= lp["end"]
             for o in loops)), key=lambda lp: lp["start"])
-        if len(inner) != len(trips):
-            raise ValueError("%d innermost loops, expected %d"
-                             % (len(inner), len(trips)))
-        out["integer_per_pass"] = out["integer"] + sum(
-            (t - 1) * lp["integer"] for t, lp in zip(trips, inner))
+        if len(trips) == len(loops) and len(loops) > len(inner):
+            ordered = sorted(loops, key=lambda lp: lp["start"])
+            per = 0
+            for (a, _, _), i in zip(instrs, is_int):
+                weight = 1
+                for t, lp in zip(trips, ordered):
+                    if lp["start"] <= a <= lp["end"]:
+                        weight *= t
+                per += i * weight
+            out["integer_per_pass"] = per
+        elif len(trips) == len(inner):
+            out["integer_per_pass"] = out["integer"] + sum(
+                (t - 1) * lp["integer"] for t, lp in zip(trips, inner))
+        else:
+            raise ValueError("%d loops, %d innermost, for %d trip counts"
+                             % (len(loops), len(inner), len(trips)))
     return out
 
 

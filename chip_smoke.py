@@ -1,11 +1,17 @@
 """Chip smoke test of the PyTorch/CUDA port on one GPU.
 
 Builds the port's CUDA kernels from `boojum_tpu_torch/csrc/`, prints each
-kernel's SASS instruction counts (`cuobjdump -sass`), and holds every kernel
+kernel's SASS instruction counts (`cuobjdump -sass`; the Poseidon2 and the
+classic-Poseidon tree entries by pipe, a permutation's share and its issue
+time at each timed shape), and holds every kernel
 entry bit-exactly against its plain PyTorch version on the card: `ntt_stage`
 at every template instance (R 128 / 256 x forward / inverse x twiddle mode
 0 / 1 / 2) and at a ragged width, `poseidon2_permute`,
 `poseidon2_leaf_hashes` and `poseidon2_node_layer` at the trees' shapes,
+`poseidon2_node_layers` (a tree's node layers in one or two launches, the
+narrow levels on 4 lanes a state) against the plain per-layer chain at m =
+2, 32, 1000 (cap 1) and at every tree of a flagship prove (cap 16; every
+launch shape of a prove again in its per-prove costs),
 `ntt_small` at every template instance (log n 0 .. 12 x forward / forward
 with the cross twiddle / inverse) at two ragged batches and at the NTT
 path's two shapes with its real twiddle tables, `sha256_witness` at 1, 3,
@@ -40,7 +46,10 @@ after:
   (`poseidon_sponge` more than once a prove). A warm prove with the
   device transcript alternates with one with the host transcript
   (`device_transcript=False`), which must give the same digest; both times
-  are printed. Each mode's stage split comes from synced proves
+  are printed. Every Poseidon2-tree prove (here and in the paths below but
+  the sharded one) must build its trees' node layers through
+  `poseidon2_node_layers`, at most MAX_NODE_LAUNCHES launches a prove, and
+  never through the one-layer `poseidon2_node_layer`. Each mode's stage split comes from synced proves
   alternated with the other mode's, and each stage's torch ops from one
   prove a mode with its ops counted (`scripts/torch_profile_flagship.py`
   gives a prove's kernels, device time and idle share under
@@ -102,7 +111,7 @@ after:
   it).
   The proves must take the device witness program
   (`materialize_witness_columns` never called) and launch `ntt_stage`, the
-  Poseidon2 leaf and node entries and `poseidon_sponge`, and no plain
+  Poseidon2 leaf and node-layers entries and `poseidon_sponge`, and no plain
   version;
 - the recursion configuration (BASELINE config 2): the inner proof of a
   2^5-row circuit with two public inputs and the outer proof of the circuit
@@ -243,9 +252,9 @@ KECCAK_WARM_PROVES = 1
 # general-purpose variant (the specialized one took two before)
 LOOKUP_VARIANTS = (("specialized", "lookup_heavy_proof_digest.json", 1),
                    ("general", "lookup_heavy_general_proof_digest.json", 1))
-# most `*_node_layers` launches a byte-tree or Poseidon-tree prove may make:
-# it makes 10, two for each 2^19-leaf tree and one for the 2^16, 2^13, 2^10
-# and 2^7 ones
+# most `*_node_layers` launches a byte-tree, Poseidon-tree or Poseidon2-tree
+# prove may make: the flagship makes 10, two for each 2^19-leaf tree and one
+# for the 2^16, 2^13, 2^10 and 2^7 ones
 MAX_NODE_LAUNCHES = 16
 # Dependency-chain model of the two sequential kernels (not a measured
 # bound): a SHA-256 round's critical path, e -> s1 -> tmp1 -> tmp1w -> te,
@@ -350,10 +359,8 @@ def k4_elements(log_n):
 
 
 def sass_report():
-    """Instruction counts of the built kernels. The Poseidon2 entries roll
-    their round loops (each round body unrolled), so their integer
-    instructions per permutation count each round loop's body times its
-    trips; the leaf entry's count is for one absorbed rate block. The
+    """Instruction counts of the built kernels (the Poseidon2 and the
+    classic-Poseidon tree entries by pipe: `p2_sass`, `ptree_sass`). The
     ntt_stage and ntt_small instances are straight-line code over the
     elements a thread holds (32 for ntt_stage; 2^A rows of C columns for
     ntt_small), so theirs is per element."""
@@ -378,14 +385,12 @@ def sass_report():
                 "%d loops, %s integer per round" % (
                     lib, short, s["total"], s["integer"], s["imad"],
                     len(s["loops"]), s["integer_per_round"]))
-    for lib in ("poseidon2", "ntt_stage", "ntt_small"):
-        trips = cuda_build.P2_ROUND_TRIPS if lib == "poseidon2" else ()
+    for lib in ("ntt_stage", "ntt_small"):
         for kname, instrs in sorted(
                 cuda_build.sass(cuda_build._lib_path(lib)).items()):
-            s = cuda_build.sass_summary(instrs, trips)
+            s = cuda_build.sass_summary(instrs)
             short, per_elem = kname, 32
-            for tag in ("permute_kernel", "leaf_kernel", "node_kernel",
-                        "ntt_stage_kernel"):
+            for tag in ("ntt_stage_kernel",):
                 if tag in kname:
                     short = tag + kname.split(tag, 1)[1][:14]
             k4 = re.search(r"ntt_small_kernelILi(\d+)ELb([01])ELb([01])E",
@@ -397,12 +402,10 @@ def sass_report():
                 per_elem = k4_elements(log_n)
             s["integer_per_element"] = s["integer"] / per_elem
             report[short] = s
-            per = " (%d integer per permutation)" % s["integer_per_pass"] \
-                if trips else " (%.1f integer per element)" % (
-                    s["integer_per_element"])
             log("sass %s: %d instructions, %d integer-pipe, %d IMAD, "
-                "%d loops%s" % (short, s["total"], s["integer"], s["imad"],
-                                len(s["loops"]), per))
+                "%d loops (%.1f integer per element)"
+                % (short, s["total"], s["integer"], s["imad"],
+                   len(s["loops"]), s["integer_per_element"]))
     return report
 
 
@@ -511,11 +514,24 @@ def check_poseidon2(rng):
             timing = time_p2(("node", m), cur, plain=True)
     out["poseidon2_node_layer"] = (max(errs), timing)
     log("poseidon2_node_layer: bit-equal at m = 2^19, 32")
+
+    errs = [check_p2_nodes(rand_field(rng, (4, m)), cap)[0]
+            for m, cap in [(2, 1), (32, 1), (1000, 1)]
+            + [(m, 16) for m in PTREE_PROVE_TREES]]
+    timing = time_p2(("nodes", 1 << 19, 15), rand_field(rng, (4, 1 << 19)),
+                     plain=True)
+    out["poseidon2_node_layers"] = (max(errs + [timing["err"]]), timing)
+    log("poseidon2_node_layers: bit-equal to the plain chain at m = 2, 32, "
+        "1000 (cap 1), at the trees of a prove %s (cap 16) and on a "
+        "2^19-leaf tree to cap 16" % (list(PTREE_PROVE_TREES),))
     return out
 
 
 def p2_bound(shape):
     kind = shape[0]
+    if kind == "nodes":  # summed over its layers, bound by its widest's
+        parts = [p2_bound(("node", shape[1] >> j)) for j in range(shape[2])]
+        return sum(t for t, _ in parts), parts[0][1]
     if kind == "permute":
         b = shape[1]
         return bound(2 * 12 * 8 * b, P2_MULS * b)
@@ -526,30 +542,56 @@ def p2_bound(shape):
     return bound((4 * m + 2 * m) * 8, P2_MULS * (m // 2))
 
 
-def time_p2(shape, x, plain=False):
-    """A K2 entry at one shape: bit-equal to its plain version, then
-    timed."""
+def check_p2_nodes(cur, cap, timed=False):
+    """`pallas_poseidon2.node_layers` against the plain chain
+    (`check_tree_nodes`)."""
     from boojum_tpu_torch.hash import pallas_poseidon2 as pp
-    fn, plain_fn = {"permute": (pp.permutation_stacked_fast,
-                                pp.permutation_plain),
-                    "leaf": (pp.leaf_hashes, pp.leaf_hashes_plain),
-                    "node": (pp.node_layer, pp.node_layer_plain)}[shape[0]]
-    want, plain_ms = plain_run(lambda: plain_fn(x), plain)
-    err = require_equal(fn(x), want, "poseidon2 %s" % (shape,))
-    res = dict(err=err, ms=cuda_ms(lambda: fn(x), 20))
+    return check_tree_nodes(
+        "poseidon2_node_layers", lambda: pp.node_layers(cur, cap),
+        lambda: pp.node_layers_plain(cur, cap),
+        lambda: pp.NODE_LAYERS_LAUNCHES, cur, cap, timed)
+
+
+P2_NAMES = {"permute": "poseidon2_permute", "leaf": "poseidon2_leaf_hashes",
+            "node": "poseidon2_node_layer", "nodes": "poseidon2_node_layers"}
+
+
+def time_p2(shape, x, plain=False):
+    """A K2 entry at one shape, ("permute", B), ("leaf", k, m), ("node", m)
+    or ("nodes", m, levels) (`node_layers` of m nodes to m >> levels: one
+    launch of a prove, or a whole tree): bit-equal to its plain version,
+    then timed."""
+    from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    if shape[0] == "nodes":
+        cap = shape[1] >> shape[2]
+
+        def fn():
+            return pp.node_layers(x, cap)
+        err, plain_ms = check_p2_nodes(x, cap, plain)
+    else:
+        fn, plain_fn = {"permute": (pp.permutation_stacked_fast,
+                                    pp.permutation_plain),
+                        "leaf": (pp.leaf_hashes, pp.leaf_hashes_plain),
+                        "node": (pp.node_layer, pp.node_layer_plain)
+                        }[shape[0]]
+        want, plain_ms = plain_run(lambda: plain_fn(x), plain)
+        err = require_equal(fn(x), want, "poseidon2 %s" % (shape,))
+        fn = functools.partial(fn, x)
+    res = dict(err=err, ms=cuda_ms(fn, 20))
     if plain:
         res["plain_ms"] = plain_ms
     res["bound_ms"], res["bound_by"] = p2_bound(shape)
-    n = x.shape[1] // (2 if shape[0] == "node" else 1)
+    res["sass_ms"] = p2_sass_ms(shape)
+    perms = {"permute": shape[-1], "leaf": shape[-1] * -(-shape[1] // 8),
+             "node": shape[-1] // 2}.get(
+        shape[0], shape[1] - (shape[1] >> shape[-1]))
     log("%s %s: bit-equal, %.4f ms kernel (%.1f M perm/s%s), bound %.4f ms "
-        "(%s), %.1f%% of bound" % (
-            {"permute": "poseidon2_permute", "leaf": "poseidon2_leaf_hashes",
-             "node": "poseidon2_node_layer"}[shape[0]], shape[1:], res["ms"],
-            n * (-(-x.shape[0] // 8) if shape[0] == "leaf" else 1)
-            / res["ms"] / 1e3,
-            ", plain %.3f ms" % res["plain_ms"] if plain else "",
-            res["bound_ms"], res["bound_by"],
-            100 * res["bound_ms"] / res["ms"]))
+        "(%s), %.1f%% of bound; its SASS at the issue rates %.4f ms (%.1f%%)"
+        % (P2_NAMES[shape[0]], shape[1:], res["ms"], perms / res["ms"] / 1e3,
+           ", plain %.3f ms" % res["plain_ms"] if plain else "",
+           res["bound_ms"], res["bound_by"],
+           100 * res["bound_ms"] / res["ms"], res["sass_ms"],
+           100 * res["sass_ms"] / res["ms"]))
     return res
 
 
@@ -764,6 +806,9 @@ def check_poseidon_sponge(rng):
 PTREE_SASS = {}
 PTREE_KERNELS = {"leaf_kernel": "leaf", "nodes_kernel": "nodes",
                  "node_kernel": "node"}
+# trips of the classic-Poseidon tree permutation's round loops (4 full, 22
+# partial, 4 full rounds), and of the 4-lane Poseidon2 permutation's
+PTREE_ROUND_TRIPS = (4, 22, 4)
 
 
 def ptree_sass_counts(lib_path):
@@ -772,7 +817,7 @@ def ptree_sass_counts(lib_path):
     "per_perm": counts, "summary": `sass_summary`}}, entry "leaf", "nodes"
     or "node" (an older library may lack "nodes"). The innermost loops are
     the three round loops (4 full, 22 partial, 4 full rounds,
-    `P2_ROUND_TRIPS`; the dense A_0 between them is unrolled), each body
+    `PTREE_ROUND_TRIPS`; the dense A_0 between them is unrolled), each body
     counted its trips; a leaf permutation is the body of the leaf kernel's
     rate-block loop with its round loops expanded, a `poseidon_node_layers`
     one the body of the level loop (its loads, barriers and stores
@@ -790,7 +835,7 @@ def ptree_sass_counts(lib_path):
                      None)
         if entry is None:
             continue
-        s = cuda_build.sass_summary(instrs, cuda_build.P2_ROUND_TRIPS)
+        s = cuda_build.sass_summary(instrs, PTREE_ROUND_TRIPS)
         loops = s["loops"]
         inner = sorted((lp for lp in loops if not any(
             o is not lp and lp["start"] <= o["start"] and o["end"] <= lp["end"]
@@ -805,7 +850,7 @@ def ptree_sass_counts(lib_path):
         body = pipe_counts(instrs, outer[0]["start"], outer[0]["end"]) \
             if outer else whole
         per = body
-        for t, lp in zip(cuda_build.P2_ROUND_TRIPS, inner):
+        for t, lp in zip(PTREE_ROUND_TRIPS, inner):
             per = comb(per, pipe_counts(instrs, lp["start"], lp["end"]), t - 1)
         out[entry] = dict(fixed=comb(whole, body, -1), per_perm=per,
                           summary=s)
@@ -858,6 +903,161 @@ def ptree_sass_ms(shape):
     c = PTREE_SASS[shape[0]]
     counts = {p: threads * c["fixed"][p] + perms * c["per_perm"][p]
               for p in PIPES}
+    return max(counts["alu"], counts["fma"],
+               counts["all"] / 2) / H100_INT_PER_S * 1e3
+
+
+# K2's kernels by entry ("permute", "leaf", "node", "nodes"), and
+# "entry/rolled" or "entry/unrolled" (the kernel's two builds: the full
+# rounds' s-boxes in a rolled loop, or unrolled, `pallas_poseidon2.ROLL_FROM`
+# picks by launch width) -> {"fixed": counts, "per_perm": counts} from SASS
+# by pipe (`pipe_counts`); "nodes/..." also has "per_lane", one lane's share
+# of a state hashed on 4 lanes at a narrow level
+P2_KERNELS = {"permute_kernel": "permute", "leaf_kernel": "leaf",
+              "node_kernel": "node", "nodes_kernel": "nodes"}
+P2_SASS = {}
+P2_LANES = 4
+
+
+def p2_sass_counts(lib_path):
+    """SASS of K2's kernels in a built `poseidon2` library, split into a
+    fixed part and a part a permutation: {entry: {"fixed", "per_perm",
+    "summary"}} (an older library lacks "nodes"). The permutation's loops
+    are its round loops and the block loops inside the full ones
+    (`P2_ROUND_TRIPS`, by start address; an older library's three round
+    loops take `PTREE_ROUND_TRIPS`), each instruction counted the product
+    of the trips of the loops that hold it. A `poseidon2_permute` or
+    `poseidon2_node_layer` thread runs one permutation, so its whole kernel
+    is one; a leaf permutation is the body of the rate-block loop (the
+    outermost loop). The `poseidon2_node_layers` kernel runs the same
+    one-thread permutation ("per_perm", taken from the node layer kernel)
+    and, at narrow levels, the 4-lane one: "per_lane", a lane's round loops
+    (the three innermost loops with warp shuffles, 4 full, 22 partial, 4
+    full rounds) counted their trips, the code around them left out; its
+    "fixed" part is left at 0."""
+    from boojum_tpu_torch.utils import cuda_build
+
+    def weighted(instrs, lo, hi, loops, trips):
+        out = dict(alu=0, fma=0, all=0)
+        for addr, op, text in instrs:
+            if not lo <= addr <= hi:
+                continue
+            w = 1
+            for t, lp in zip(trips, loops):
+                if lp["start"] <= addr <= lp["end"]:
+                    w *= t
+            for p, n in pipe_counts([(addr, op, text)]).items():
+                out[p] += w * n
+        return out
+
+    out, nodes = {}, {}
+    for kname, instrs in cuda_build.sass(lib_path).items():
+        entry = next((e for t, e in P2_KERNELS.items() if t in kname), None)
+        if entry is None:
+            continue
+        build = "rolled" if "ILb1E" in kname else "unrolled"
+        s = cuda_build.sass_summary(instrs)
+        loops = sorted(s["loops"], key=lambda lp: lp["start"])
+        if entry == "nodes":
+            inner = [lp for lp in loops if not any(
+                o is not lp and lp["start"] <= o["start"] and
+                o["end"] <= lp["end"] for o in loops)]
+            nodes[build] = (instrs, [lp for lp in inner if any(
+                op.startswith("SHFL") for a, op, _ in instrs
+                if lp["start"] <= a <= lp["end"])], s)
+            continue
+        lo, hi = instrs[0][0], instrs[-1][0]
+        if entry == "leaf":  # the rate-block loop around the permutation
+            outer = max(loops, key=lambda lp: lp["end"] - lp["start"])
+            loops.remove(outer)
+            lo, hi = outer["start"], outer["end"]
+        trips = {len(cuda_build.P2_ROUND_TRIPS): cuda_build.P2_ROUND_TRIPS,
+                 len(PTREE_ROUND_TRIPS): PTREE_ROUND_TRIPS}.get(len(loops))
+        if trips is None:
+            raise AssertionError("sass poseidon2 %s: %d permutation loops, "
+                                 "not the kernel's structure"
+                                 % (kname, len(loops)))
+        body = pipe_counts(instrs, lo, hi)
+        out["%s/%s" % (entry, build)] = dict(
+            fixed={p: v - body[p] for p, v in pipe_counts(instrs).items()},
+            per_perm=weighted(instrs, lo, hi, loops, trips), summary=s)
+    for build, (instrs, shfl, s) in nodes.items():
+        entry = out["nodes/" + build] = dict(
+            fixed={p: 0 for p in PIPES},
+            per_perm=out["node/" + build]["per_perm"], summary=s)
+        if len(shfl) == 3:
+            per = weighted(instrs, shfl[0]["start"], shfl[-1]["end"], shfl,
+                           PTREE_ROUND_TRIPS)
+            # the code between the three loops is not the lane's: out
+            gaps = pipe_counts(instrs, shfl[0]["start"], shfl[-1]["end"])
+            for lp in shfl:
+                inside = pipe_counts(instrs, lp["start"], lp["end"])
+                gaps = {p: gaps[p] - inside[p] for p in PIPES}
+            entry["per_lane"] = {p: per[p] - gaps[p] for p in PIPES}
+        s["shfl_loops"] = len(shfl)
+    return out
+
+
+def p2_sass():
+    """`p2_sass_counts` of the built library, kept in `P2_SASS` and
+    printed."""
+    from boojum_tpu_torch.utils import cuda_build
+    for entry, c in sorted(p2_sass_counts(
+            cuda_build._lib_path("poseidon2")).items()):
+        P2_SASS[entry] = {k: v for k, v in c.items() if k != "summary"}
+        s = c["summary"]
+        name, build = entry.split("/")
+        log("sass poseidon2 %s (%s): %d instructions, %d integer-pipe, %d "
+            "IMAD, %d loops; per permutation %s%s, fixed %s"
+            % (P2_NAMES[name], build, s["total"], s["integer"], s["imad"],
+               len(s["loops"]), json.dumps(c["per_perm"]),
+               "; per lane of a 4-lane state %s" % json.dumps(c["per_lane"])
+               if "per_lane" in c else "", json.dumps(c["fixed"])))
+
+
+def p2_levels(m, levels):
+    """The levels of one `poseidon2_node_layers` launch over m nodes, as
+    (parents, narrow): byte_tree.cuh's stages of NODE_STAGE levels, a
+    block's subtree over 2 NODE_THREADS nodes of the stage's input, a level
+    narrow where a block has at most NODE_THREADS / 4 parents."""
+    from boojum_tpu_torch.hash import device_bytes_hash as dbh
+    out = []
+    for lv in range(levels):
+        width = m >> (dbh.NODE_STAGE * (lv // dbh.NODE_STAGE))
+        per_block = min(2 * dbh.NODE_THREADS, width) >> (
+            lv % dbh.NODE_STAGE + 1)
+        out.append((m >> (lv + 1),
+                    per_block * P2_LANES <= dbh.NODE_THREADS))
+    return out
+
+
+def p2_sass_ms(shape):
+    """The time a K2 launch's own SASS (`p2_sass`) takes at the card's issue
+    rates (as `ptree_sass_ms`): ("permute", B), ("leaf", k, m), ("node",
+    m) or ("nodes", m, levels), the last from its levels' permutations, a
+    narrow level's on 4 lanes; the kernel build the launch takes
+    (`pallas_poseidon2.rolled`, `node_layers_rolled`)."""
+    from boojum_tpu_torch.hash import device_bytes_hash as dbh
+    from boojum_tpu_torch.hash import pallas_poseidon2 as pp
+    kind = shape[0]
+    width = {"permute": shape[-1], "leaf": shape[-1]}.get(
+        kind, shape[1] // 2)
+    roll = pp.node_layers_rolled(*shape[1:]) if kind == "nodes" \
+        else pp.rolled(width)
+    c = P2_SASS["%s/%s" % (kind, "rolled" if roll else "unrolled")]
+    if kind == "nodes":
+        threads = -(-shape[1] // (2 * dbh.NODE_THREADS)) * dbh.NODE_THREADS
+        counts = {p: threads * c["fixed"][p] for p in PIPES}
+        for parents, narrow in p2_levels(*shape[1:]):
+            for p in PIPES:
+                counts[p] += parents * (
+                    P2_LANES * c["per_lane"][p] if narrow and "per_lane" in c
+                    else c["per_perm"][p])
+    else:
+        threads = width
+        perms = width * -(-shape[1] // 8) if kind == "leaf" else width
+        counts = {p: threads * c["fixed"][p] + perms * c["per_perm"][p]
+                  for p in PIPES}
     return max(counts["alu"], counts["fma"],
                counts["all"] / 2) / H100_INT_PER_S * 1e3
 
@@ -1236,7 +1436,7 @@ def reset_counts():
         mod.PLAIN_CUDA_CALLS = 0
         if hasattr(mod, "SHAPES"):
             mod.SHAPES.clear()
-    pp.LEAF_LAUNCHES = pp.NODE_LAUNCHES = 0
+    pp.LEAF_LAUNCHES = pp.NODE_LAUNCHES = pp.NODE_LAYERS_LAUNCHES = 0
     poseidon.LEAF_LAUNCHES = poseidon.NODE_LAUNCHES = 0
     poseidon.NODE_LAYERS_LAUNCHES = 0
     pn.TORCH_TWIDDLE_MULS = 0
@@ -1258,6 +1458,7 @@ def read_counts():
     return dict(ntt_stage=mxu_ntt.LAUNCHES, poseidon2_permute=pp.LAUNCHES,
                 poseidon2_leaf_hashes=pp.LEAF_LAUNCHES,
                 poseidon2_node_layer=pp.NODE_LAUNCHES,
+                poseidon2_node_layers=pp.NODE_LAYERS_LAUNCHES,
                 ntt_small=pn.LAUNCHES, sha256_witness=sw.LAUNCHES,
                 poseidon_sponge=poseidon.LAUNCHES,
                 poseidon_leaf_hashes=poseidon.LEAF_LAUNCHES,
@@ -1392,8 +1593,6 @@ def per_prove_costs(rng, label, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
             return t
         log("per %s: ntt_stage %s x %d" % (label, shape, n))
         add("ntt_stage", n, shape, k1)
-    names = {"permute": "poseidon2_permute", "leaf": "poseidon2_leaf_hashes",
-             "node": "poseidon2_node_layer"}
     for shape, n in sorted(p2_shapes.items()):
         def p2():
             if shape[0] == "permute":
@@ -1404,7 +1603,7 @@ def per_prove_costs(rng, label, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
                 x = rand_field(rng, (4, shape[1]))
             return time_p2(shape, x)
         log("per %s: %s x %d" % (label, shape, n))
-        add(names[shape[0]], n, shape, p2)
+        add(P2_NAMES[shape[0]], n, shape, p2)
     for key, n in sorted(byte_shapes.items()):
         algo, shape = key[0], key[1:]
         name = "%s_%s" % (algo, "leaf_hashes" if shape[0] == "leaf"
@@ -1418,6 +1617,24 @@ def per_prove_costs(rng, label, k1_shapes, p2_shapes, k5_blocks, k6_shapes,
         "launches x bound, and of launches x (time - bound)): %s"
         % (label, json.dumps(out)))
     return out, errs
+
+
+def check_p2_node_launches(p2_shapes, what):
+    """A single-device Poseidon2-tree prove's node launches (``p2_shapes``:
+    its `pallas_poseidon2.SHAPES`): all through `poseidon2_node_layers`
+    (none a layer), at most MAX_NODE_LAUNCHES; logged."""
+    nodes = sorted((sh[1:], n) for sh, n in p2_shapes.items()
+                   if sh[0] == "nodes")
+    layer = sum(n for sh, n in p2_shapes.items() if sh[0] == "node")
+    total = sum(n for _, n in nodes)
+    log("%s prove: %d poseidon2_node_layers launches (at most %d), %d "
+        "poseidon2_node_layer: %s" % (what, total, MAX_NODE_LAUNCHES, layer,
+                                      json.dumps(nodes)))
+    if total > MAX_NODE_LAUNCHES or layer:
+        raise AssertionError("a %s prove made %d poseidon2_node_layers "
+                             "launches (at most %d) and %d "
+                             "poseidon2_node_layer launches (none)"
+                             % (what, total, MAX_NODE_LAUNCHES, layer))
 
 
 def count_syncs(fn):
@@ -1578,10 +1795,15 @@ def flagship():
         last["per_prove"] = {k: after[k] - before[k] for k in after}
         last["shapes"] = [c - b for c, b in zip(
             (mxu_ntt.SHAPES, pp.SHAPES, poseidon.SHAPES), shapes)]
+        check_p2_node_launches(last["shapes"][1], "flagship warm (device "
+                               "transcript)")
 
     def warm_host():
+        before = pp.SHAPES.copy()
         host_proof, t = prove(device_transcript=False)
         warm["host"].append(t)
+        check_p2_node_launches(pp.SHAPES - before, "flagship warm (host "
+                               "transcript)")
         if proof_digest(host_proof) != ref["proof_json_sha256"]:
             raise AssertionError("the host-transcript proof differs from "
                                  "the reference")
@@ -1605,10 +1827,13 @@ def flagship():
                         sum(ts) / len(ts)))
     log("flagship launches (setup + %d proves): %s; per default prove: %s"
         % (1 + 2 * WARM_ROUNDS, json.dumps(counts), json.dumps(per_prove)))
-    for name in ("ntt_stage", "poseidon2_leaf_hashes", "poseidon2_node_layer",
+    for name in ("ntt_stage", "poseidon2_leaf_hashes", "poseidon2_node_layers",
                  "sha256_witness", "poseidon_sponge"):
         if counts[name] <= 0:
             raise AssertionError("%s never launched on the main path" % name)
+    if counts["poseidon2_node_layer"]:
+        raise AssertionError("the main path launched poseidon2_node_layer "
+                             "(a tree's node layers take node_layers)")
     if counts["plain_on_cuda"]:
         raise AssertionError("a plain version ran on a CUDA tensor")
     if per_prove["sha256_witness"] != 1 or per_prove["poseidon_sponge"] < 2:
@@ -1748,7 +1973,8 @@ def poseidon_tree_flagship(ctx):
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the %s path"
                                  % (kernel, name))
-    if counts["poseidon2_leaf_hashes"] or counts["poseidon2_node_layer"]:
+    if counts["poseidon2_leaf_hashes"] or counts["poseidon2_node_layer"] or \
+            counts["poseidon2_node_layers"]:
         raise AssertionError("the %s path hashed with Poseidon2 trees" % name)
     if counts["plain_on_cuda"]:
         raise AssertionError("a plain version ran on a CUDA tensor")
@@ -1932,7 +2158,7 @@ def host_prove_path():
         proofs["host prove " + label] = (art.vk, proof, ref["transcript"],
                                          ref["hasher"])
     counts = read_counts()
-    for kernel in ("poseidon2_leaf_hashes", "poseidon2_node_layer"):
+    for kernel in ("poseidon2_leaf_hashes", "poseidon2_node_layers"):
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the host prove path"
                                  % kernel)
@@ -2147,7 +2373,8 @@ def circuit_path(name, cs, ref, warm):
     syncs, so it also gives the stage split, with the counting's own cost
     in each stage's wall); peak device memory. Every prove must take the device
     witness program (`materialize_witness_columns` never called) and launch
-    `ntt_stage`, the Poseidon2 leaf and node entries and `poseidon_sponge`,
+    `ntt_stage`, the Poseidon2 leaf and node-layers entries and
+    `poseidon_sponge`,
     and no plain version. Returns the counts of the path, the launches by
     shape of its setup and of its last warm prove, and its VK and proof."""
     import torch
@@ -2187,6 +2414,8 @@ def circuit_path(name, cs, ref, warm):
             "calls %d, by source line: %s"
             % (name, "warm" if i else "cold", t, proof_digest(proof), syncs,
                json.dumps(dict(sites.most_common()))))
+        check_p2_node_launches(shapes[1], "%s %s" % (
+            name, "warm" if i else "cold"))
         if proof_digest(proof) != sha:
             raise AssertionError("a %s proof differs from the reference "
                                  "(sha256 %s)" % (name, sha))
@@ -2207,7 +2436,7 @@ def circuit_path(name, cs, ref, warm):
            torch.cuda.max_memory_allocated() / 1e9, host_witness, 2 + warm,
            json.dumps(counts)))
     for kernel in ("ntt_stage", "poseidon2_leaf_hashes",
-                   "poseidon2_node_layer", "poseidon_sponge"):
+                   "poseidon2_node_layers", "poseidon_sponge"):
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the %s path"
                                  % (kernel, name))
@@ -2318,7 +2547,8 @@ def recursion_outer():
         return log_stage_ops("recursion outer %s" % what, rows,
                              oprover.last_stage_times), shapes
 
-    cold_ops, _ = counted("cold")
+    cold_ops, cold_shapes = counted("cold")
+    check_p2_node_launches(cold_shapes[1], "recursion outer cold")
     outer_proof, times, shapes = timed_proves("recursion outer (warm)",
                                               oprover, oref, sha, 1)
     log("recursion outer: torch ops of the cold prove %d; warm prove %.4f s; "
@@ -2341,11 +2571,14 @@ def recursion_outer():
     log("recursion path launches (setups + %d proves): %s; host witness "
         "path calls %d" % (3, json.dumps(counts),
                            host_witness_calls() - host_witness))
-    for name in ("poseidon2_leaf_hashes", "poseidon2_node_layer",
+    for name in ("poseidon2_leaf_hashes", "poseidon2_node_layers",
                  "poseidon_sponge"):
         if counts[name] <= 0:
             raise AssertionError("%s never launched on the recursion path"
                                  % name)
+    for what, sh in (("recursion inner", inner_shapes),
+                     ("recursion outer", shapes)):
+        check_p2_node_launches(sh[1], what)
     if counts["plain_on_cuda"]:
         raise AssertionError("a plain version ran on a CUDA tensor")
     return counts, {"inner setup": inner_setup, "inner prove": inner_shapes,
@@ -2494,6 +2727,7 @@ def main():
         "the native witness engine (g++, boojum_tpu_torch/_build/)"
         if native.available() else "numpy (no native witness engine)"))
     sass = sass_report()
+    p2_sass()
     ptree_sass()
     byte_sass()
 
@@ -2615,6 +2849,11 @@ def main():
             max(p2["poseidon2_leaf_hashes"][0],
                 prove_errs["poseidon2_leaf_hashes"]),
             p2["poseidon2_leaf_hashes"][1]),
+        row("poseidon2_node_layers", p2_src, P2_REPLACES,
+            counts["poseidon2_node_layers"],
+            max(p2["poseidon2_node_layers"][0],
+                prove_errs["poseidon2_node_layers"]),
+            p2["poseidon2_node_layers"][1]),
         row("poseidon2_node_layer", p2_src, P2_REPLACES,
             counts["poseidon2_node_layer"],
             max(p2["poseidon2_node_layer"][0],
@@ -2647,7 +2886,7 @@ def main():
                               "integer_per_element") if f in v}
         for k, v in sass.items()}, byte_sass={
             "%s/%s" % k: v for k, v in BYTE_SASS.items()},
-        poseidon_tree_sass=PTREE_SASS)))
+        poseidon2_sass=P2_SASS, poseidon_tree_sass=PTREE_SASS)))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,8 +47,12 @@ def sass_lines(label, out_dir):
             # entries came, "permute_kernel" since
             per_perm = name == "poseidon2" and (
                 "permute_kernel" in kname or "poseidon2_kernel" in kname)
-            s = cuda_build.sass_summary(
-                instrs, cuda_build.P2_ROUND_TRIPS if per_perm else ())
+            trips = ()
+            if per_perm:  # sources before the s-box block loops: 3 loops
+                loops = len(cuda_build.sass_summary(instrs)["loops"])
+                trips = cuda_build.P2_ROUND_TRIPS if loops == len(
+                    cuda_build.P2_ROUND_TRIPS) else (4, 22, 4)
+            s = cuda_build.sass_summary(instrs, trips)
             if name in ("poseidon", "sha256_witness"):
                 s["integer_per_round"] = cuda_build.chain_per_round(
                     name, instrs, s)

@@ -142,7 +142,7 @@ def _cuda_int(path, name):
 
 
 def _emulate_launch(src, src_off, out, at, m, levels, tickets, threads, stage,
-                    node, writes, rng, words=8):
+                    node, writes, rng, words=8, lanes=1):
     """One launch of a tree's `*_node_layers` entry as csrc/byte_tree.cuh
     schedules it, on flat u64 arrays: `src` holds the (words, m) input
     layer from `src_off`, `out` receives the `levels` layers from `at`,
@@ -150,7 +150,10 @@ def _emulate_launch(src, src_off, out, at, m, levels, tickets, threads, stage,
     `node` hashes (words, 2p) sibling pairs into (words, p) parents; `writes`
     counts the stores to each element of `out`. The blocks of a stage take
     their tickets in an order drawn from `rng`; a block that goes on reads
-    only digests its own group wrote."""
+    only digests its own group wrote. With ``lanes`` > 1 (a node hash that
+    opts in to narrow levels, lanes = words), a block's level of at most
+    threads / lanes parents is narrow: thread lanes * t + w handles word w
+    of parent t, reading word w of its pair and storing that word."""
     group = 1 << stage  # 2 THREADS >> STAGE digests a block, 2 THREADS a group
     assert threads >> (stage - 1) >= 32  # a full stage's levels fill warps
     assert 1 <= levels < 63 and m >= 2 and m % (1 << levels) == 0  # valid
@@ -168,8 +171,10 @@ def _emulate_launch(src, src_off, out, at, m, levels, tickets, threads, stage,
             pairs, who = [], []
             for b in range(blocks):
                 first = 2 * threads * b
+                narrow = lanes > 1 and (n[b] >> 1) * lanes <= threads
                 for t in range(n[b] >> 1):  # the threads with a parent
-                    assert t < threads
+                    # narrow: thread lanes * t + k handles word k of parent t
+                    assert (lanes * t + words - 1 if narrow else t) < threads
                     if j == 0:  # 16-byte loads from the stage's input layer
                         a = src_off + planes * w + first + 2 * t
                         if done:  # written by this block's group
@@ -227,13 +232,16 @@ def _tickets(m, levels, threads, stage):
     return n
 
 
-def _emulate_node_layers(cur, node, cap, threads, stage, rng, plan=None):
+def _emulate_node_layers(cur, node, cap, threads, stage, rng, plan=None,
+                         lanes=1):
     """`node_layers`' CUDA branch with its launches emulated: the layers are
     views of `node_buffer`'s one buffer, each launch of ``plan`` (by
     default `node_launches`') reads the last layer the one before it wrote
     and takes the next slice of the hand-on counters (`node_tickets` of
     them at the kernel's own block size; counted here for ``threads``).
-    ``node`` is the plain node hash of a (words, 2p) layer. Returns the
+    ``node`` is the plain node hash of a (words, 2p) layer; ``lanes`` the
+    node hash's lanes a state at narrow levels (`_emulate_launch`), or a
+    function of a launch's (width, levels) giving them. Returns the
     layers, the store count of every element, and the counters after the
     launches."""
     words, m = cur.shape
@@ -249,6 +257,7 @@ def _emulate_node_layers(cur, node, cap, threads, stage, rng, plan=None):
     buf = np.zeros(total, np.uint64)
     writes = np.zeros(total, int)
     counts = [_tickets(w, lv, threads, stage) for w, lv in plan]
+    lanes_of = lanes if callable(lanes) else (lambda w, lv: lanes)
     if threads == dbh.NODE_THREADS:
         assert counts == [dbh.node_tickets(w, lv) for w, lv in plan]
     tickets = np.zeros(sum(counts), int)
@@ -258,7 +267,7 @@ def _emulate_node_layers(cur, node, cap, threads, stage, rng, plan=None):
         used = _emulate_launch(src, src_off, buf,
                                layers[done].storage_offset(), w, levels,
                                tickets[first:first + n], threads, stage,
-                               node, writes, rng, words)
+                               node, writes, rng, words, lanes_of(w, levels))
         assert used == n
         done += levels
         first += n

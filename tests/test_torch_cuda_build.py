@@ -28,9 +28,14 @@ def test_sass_summary_counts_loops_and_trips():
     assert [(lp["start"], lp["end"], lp["integer"]) for lp in s["loops"]] == [
         (0x20, 0x30, 1), (0x40, 0x50, 1), (0x60, 0x80, 1), (0x10, 0x90, 4)]
     assert "integer_per_pass" not in s
-    s = cuda_build.sass_summary(LISTING, cuda_build.P2_ROUND_TRIPS)
+    s = cuda_build.sass_summary(LISTING, (4, 22, 4))
     # 5 once, and the three inner bodies 3, 21 and 3 more times
     assert s["integer_per_pass"] == 5 + 3 + 21 + 3
+    # trips of every loop, by start address (the outer one first): each
+    # instruction times the trips of the loops that hold it
+    s = cuda_build.sass_summary(LISTING, (2, 4, 22, 4))
+    assert s["integer_per_pass"] == 1 + 2 * (1 + 4 + 22 + 4)
+    assert len(cuda_build.P2_ROUND_TRIPS) == 5
     with pytest.raises(ValueError):
         cuda_build.sass_summary(LISTING, (4, 22))
 

@@ -2,8 +2,9 @@
 entry point, on the card against the same calls on the CPU, and each entry
 of the redesigned kernels bit-equal to its plain version on the card
 (`ntt_stage` at every template instance and a ragged width; `ntt_small` at
-every template instance, with and without its cross twiddle; the three
-Poseidon2 entries at the trees' shapes; the SHA-256 witness chain at 1 and 3
+every template instance, with and without its cross twiddle; the four
+Poseidon2 entries at the trees' shapes, the node-layers entry against the
+plain per-layer chain across the two-launch split; the SHA-256 witness chain at 1 and 3
 blocks; the Poseidon sponge's absorb and permute; the classic-Poseidon
 tree entries at the block-boundary widths and on a strided view, and its
 node-layers entry against the plain per-layer chain across the two-launch
@@ -180,6 +181,22 @@ def test_poseidon2_leaf_hashes_equal_plain(cuda, k, m):
 def test_poseidon2_node_layer_equals_plain(cuda, m):
     cur = _rand(cuda, m, (4, m))
     assert torch.equal(pp.node_layer(cur), pp.node_layer_plain(cur))
+
+
+@pytest.mark.parametrize("m,cap", [(2, 1), (1000, 1), (1 << 12, 16),
+                                   (1 << 19, 16)])
+def test_poseidon2_node_layers_equal_plain(cuda, m, cap):
+    """A tree's node layers (one launch, two above 2^17 nodes; the narrow
+    levels on 4 lanes a state) against the plain per-layer chain."""
+    cur = _rand(cuda, m + cap, (4, m))
+    before = pp.NODE_LAYERS_LAUNCHES
+    got = pp.node_layers(cur, cap)
+    want = pp.node_layers_plain(cur, cap)
+    assert pp.NODE_LAYERS_LAUNCHES - before == len(
+        dbh.node_launches(m, len(want)))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("k,m", [(1, 1000), (7, 4096), (9, 4096),

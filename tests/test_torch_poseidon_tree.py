@@ -29,7 +29,7 @@ from boojum_tpu.hash import sponge as ref_sponge
 from boojum_tpu.hash.merkle import AlgebraicMerkleTree
 from boojum_tpu_torch.field import goldilocks as gl
 from boojum_tpu_torch.hash import device_bytes_hash as dbh
-from boojum_tpu_torch.hash import poseidon, poseidon_sparse
+from boojum_tpu_torch.hash import pallas_poseidon2, poseidon, poseidon_sparse
 from boojum_tpu_torch.hash.merkle import \
     AlgebraicMerkleTree as PortMerkleTree
 from boojum_tpu_torch.prover.device_merkle import build_any_device_tree
@@ -363,25 +363,42 @@ def test_node_layers_match_jax(jax_poseidon, m, cap):
         assert np.array_equal(gl.to_u64(g), w)
 
 
-@pytest.mark.parametrize("m,cap,split", [(1 << 11, 1, False),
-                                         (3 << 9, 1, False),
-                                         (1 << 11, 16, True)])
-def test_node_schedule_matches_plain_chain(m, cap, split):
+SCHEDULE_CASES = [(1 << 11, 1, False), (3 << 9, 1, False),
+                  (1 << 11, 16, True)]
+
+
+@pytest.mark.parametrize("hasher,m,cap,split", [
+    pytest.param("poseidon", *case, id="%d-%d-%s" % case)
+    for case in SCHEDULE_CASES] + [
+    pytest.param("poseidon2", *case, id="poseidon2-%d-%d-%s" % case)
+    for case in SCHEDULE_CASES + [(1000, 1, False), (96, 16, False)]])
+def test_node_schedule_matches_plain_chain(hasher, m, cap, split):
     """csrc/byte_tree.cuh's schedule (the emulation of the byte trees'
-    tests) around the Poseidon node hash, digests of 4 u64 planes: every
-    element of the one buffer stored once, every group's counter drawn by
-    each of its blocks, the layers equal to the plain chain; also split
-    into two launches as `node_launches` splits a tree above 2^17 nodes."""
+    tests) around the Poseidon node hash, or the Poseidon2 one with its
+    narrow levels on 4 lanes a state (its opt-in in a launch that takes the
+    unrolled build: a level of at most 64 parents a block, thread 4t + w on
+    word w of parent t), digests of 4 u64
+    planes: every element of the one buffer stored once, every group's
+    counter drawn by each of its blocks, the layers equal to the plain
+    chain; also split into two launches as `node_launches` splits a tree
+    above 2^17 nodes."""
+    mod = {"poseidon": poseidon, "poseidon2": pallas_poseidon2}[hasher]
+    lanes = 1
+    if hasher == "poseidon2":  # the unrolled build's narrow levels
+        assert _cuda_int(CSRC / "poseidon2.cu", "STATE_LANES") == 4
+
+        def lanes(w, levels):
+            return 1 if pallas_poseidon2.node_layers_rolled(w, levels) else 4
     cur = gl.from_u64(_cols(m, 4, m))
     n = len(dbh.node_widths(m, cap))
     plan = [(m, dbh.NODE_STAGE), (m >> dbh.NODE_STAGE, n - dbh.NODE_STAGE)] \
         if split else None
     got, writes, tickets = _emulate_node_layers(
-        cur, poseidon.node_layer_plain, cap, dbh.NODE_THREADS,
-        dbh.NODE_STAGE, np.random.default_rng(m), plan)
+        cur, mod.node_layer_plain, cap, dbh.NODE_THREADS,
+        dbh.NODE_STAGE, np.random.default_rng(m), plan, lanes)
     assert (writes == 1).all()
     assert (tickets >= 1).all() and (tickets <= dbh.NODE_GROUP).all()
-    want = poseidon.node_layers_plain(cur, cap)
+    want = mod.node_layers_plain(cur, cap)
     assert len(want) == n
     for g, w in zip(got, want):
         assert torch.equal(g, w)
