@@ -4,8 +4,11 @@
 The stage sequence is the reference's host `prove`
 (`boojum_tpu/prover/prover.py:184-780`, whose proofs are byte-equal to
 the reference `DeviceProver`'s), with every column-sized array a tensor on
-``device``: host witness columns and host transcript; stage 2 (copy
-permutation grand product, lookup A/B polys); the quotient over the flat
+``device``: host witness columns and host transcript; stages 2 and 3 (copy
+permutation grand product, lookup A/B polys: `stage23.stage23`, on a GPU
+two hand kernels in place of the reference's one program `_stage23_jit`,
+its ops one by one on the sharded path, as the reference's mesh path runs
+them); the quotient over the flat
 (qd·n) domain; its coset iNTT; evaluations at z, z·ω and 0; DEEP; FRI; and
 the query openings. NTTs run through the `ntt_stage` kernel and every Merkle
 tree through the leaf and node entries of the tree hasher's kernel on the
@@ -67,6 +70,7 @@ from ..transcript import make_transcript
 from ..utils import npgl
 from . import device as dops
 from . import pow as pow_mod
+from . import stage23
 from .device_merkle import (TREE_HASHERS, FetchCollector, do_fri_device,
                             finish_fri)
 from .device_transcript import (DeviceTranscript, ext_pow_table_dev,
@@ -172,9 +176,10 @@ class DeviceProver:
     def _invariant_tables(self):
         """Device tables that stay the same from prove to prove: X over the
         quotient and FRI domains, the unnormalized L1, 1/Z_H per quotient
-        coset and the FRI inverse roots (the domain's), and in the
-        general-purpose lookup modes the marker's selector over the base and
-        the flat quotient domain (the setup's)."""
+        coset and the FRI inverse roots (the domain's), the copy
+        permutation's non-residues, and in the general-purpose lookup modes
+        the marker's selector over the base and the flat quotient domain
+        (the setup's)."""
         if self._tables is None:
             n, qd, fri_lde, dev = self.n, self.qd, self.fri_lde, self.device
             # a sharded prover's rows of each coset (all of them on one
@@ -193,6 +198,11 @@ class DeviceProver:
                 # ω^i on the base domain
                 "x_vals": gl.from_u64(npgl.powers(gl.domain_generator(
                     n.bit_length() - 1), n)[own], dev),
+                # the copy permutation's k_j (stages 2+3, the quotient)
+                "non_res": stage23.NonResidues.make(
+                    non_residues_for_copy_permutation(
+                        n, self.artifacts.setup_base.copy_permutation_polys
+                        .shape[0]), dev),
             }
             lp = self.cs.lookup_parameters
             if lp.lookup_is_allowed and not lp.is_specialized:
@@ -360,56 +370,21 @@ class DeviceProver:
         num_const_polys = sb.constant_columns.shape[0]
         num_table_polys = sb.lookup_tables_columns.shape[0]
         assert num_sigma_polys == num_var_polys
-        # base-domain columns, sliced from the oracles' Lagrange tensors
-        var_base = witness_oracle.lagrange.T  # (k, n) views
-        mult_base = var_base[num_var_polys + num_wit_polys:]
-        setup_base_cols = setup_oracle.lagrange.T
-        sigma_base = setup_base_cols[:num_sigma_polys]
-        const_base = setup_base_cols[num_sigma_polys:num_sigma_polys + num_const_polys]
-        table_base = setup_base_cols[num_sigma_polys + num_const_polys:]
         stage("witness oracle")
 
-        # -- stage 2: copy permutation z + partial products -------------------
+        # -- stages 2+3: copy-permutation z and partial products, lookup A/B
+        # polys: one (rows, 2·k2) matrix of the oracles' Lagrange values
         beta = ext_challenge()
         gamma = ext_challenge()
         x_vals = tables["x_vals"]
-        non_res = non_residues_for_copy_permutation(n, num_var_polys)
-
-        chunk_ratios = []
-        for start in range(0, num_var_polys, qd):
-            num = EV.const((1, 0), (rows,), dev)
-            den = EV.const((1, 0), (rows,), dev)
-            for j in range(start, min(start + qd, num_var_polys)):
-                w = var_base[j]
-                num = num * EV(*affine(w, gl.mul(x_vals, non_res[j]), beta, gamma))
-                den = den * EV(*affine(w, sigma_base[j], beta, gamma))
-            chunk_ratios.append(num * den.inv())
-        ratio = chunk_ratios[0]
-        for r in chunk_ratios[1:]:
-            ratio = ratio * r
-        z_vals = EV(*(dops.grand_product_exclusive(ratio.a) if mesh is None
-                      else distributed_grand_product(mesh, ratio.a)))
-        intermediates = []
-        prev = z_vals
-        for r in chunk_ratios[:-1]:
-            prev = prev * r
-            intermediates.append(prev)
-        stage("copy-permutation z")
-
-        # -- stage 3: lookup A/B polys ------------------------------------------
-        # Specialized modes: A_i = 1/agg_i on every row. General-purpose
-        # modes: A_i = sel/agg_i, sel the marker gate's selector, so A_i is
-        # 0 off the marker rows. A zero agg_i (inverted to 0, as the
-        # reference's batch inverse does) on a row that looks up leaves
-        # A·agg - sel = -1 there: the quotient is then not divisible, which
-        # the top-coefficient check (runtime_asserts) reports.
-        lookup_a_polys, lookup_b_polys = [], []
+        non_res = tables["non_res"]
+        num_intermediates = -(-num_var_polys // qd) - 1
         num_lookup_subargs = lp.num_sublookup_arguments_for_geometry(geometry)
+        lookup = None
         if lp.lookup_is_allowed:
             lookup_beta = ext_challenge()
             lookup_gamma = ext_challenge()
             width = lp.lookup_width()
-            gamma_pows = pow_table(lookup_gamma, width + 1)
             if lp.is_specialized:
                 pw = lp.specialized_columns_per_repetition()
                 base_off = geometry.num_columns_under_copy_permutation
@@ -417,31 +392,32 @@ class DeviceProver:
                 pw = lp.columns_per_subargument()  # the id column included
                 base_off = 0
             tid_cols = sb.table_ids_column_idxes
+            lookup = stage23.LookupInputs(
+                beta=lookup_beta, gamma_pows=pow_table(lookup_gamma, width + 1),
+                width=width, pw=pw, base_off=base_off,
+                num_subargs=num_lookup_subargs,
+                tid_cols=tuple(num_sigma_polys + t for t in tid_cols)
+                if lp.id_in_constant else (),
+                table_off=num_sigma_polys + num_const_polys,
+                num_table=num_table_polys,
+                mult_col=num_var_polys + num_wit_polys,
+                sel=None if lp.is_specialized else tables["sel_base"])
 
             def aggregate(cols, tid_col, size):
-                agg = EV.const(lookup_beta, (size,), dev)
-                for i, col in enumerate(cols):
-                    agg = agg + EV(*ext2.base_scale(col, gamma_pows[i]))
-                if tid_col is not None:
-                    agg = agg + EV(*ext2.base_scale(tid_col, gamma_pows[width]))
-                return agg
+                return stage23.aggregate(lookup, cols, tid_col, size, dev)
 
-            for rep in range(num_lookup_subargs):
-                cols = [var_base[base_off + rep * pw + i] for i in range(pw)]
-                tid = const_base[tid_cols[min(rep, len(tid_cols) - 1)]] \
-                    if lp.id_in_constant else None
-                a_poly = aggregate(cols, tid, rows).inv()
-                if not lp.is_specialized:
-                    a_poly = a_poly.mul_base(tables["sel_base"])
-                lookup_a_polys.append(a_poly)
-            agg_t = aggregate(list(table_base), None, rows)
-            lookup_b_polys.append(agg_t.inv().mul_base(mult_base[0]))
-        stage("lookup A/B")
+        if mesh is None:
+            stage2_lagrange = stage23.stage23(
+                witness_oracle.lagrange, setup_oracle.lagrange, x_vals,
+                non_res, beta, gamma, qd, lookup)
+        else:
+            stage2_lagrange = stage23.stage23_ops(
+                witness_oracle.lagrange, setup_oracle.lagrange, x_vals,
+                non_res, beta, gamma, qd, lookup,
+                lambda r: distributed_grand_product(mesh, r))
+        stage("stages 2+3")
 
         # -- stage 4: stage-2 oracle -------------------------------------------
-        stage2_polys = [z_vals] + intermediates + lookup_a_polys + lookup_b_polys
-        stage2_lagrange = torch.stack([c for p in stage2_polys for c in p.a], dim=1)
-        del stage2_polys, chunk_ratios, ratio
         stage2_oracle = oracle(stage2_lagrange, used_lde, tree_lde=fri_lde)
         num_stage2 = stage2_lagrange.shape[1]
         del stage2_lagrange
@@ -450,7 +426,6 @@ class DeviceProver:
 
         # -- stage 5: alpha powers ---------------------------------------------
         alpha = ext_challenge()
-        num_intermediates = len(intermediates)
         total_lookup_terms = num_lookup_subargs + num_mult_polys
         total_specialized_terms = sum(
             cs.evaluators_specialized[cs.specialized_idx_by_name[name]]
@@ -554,7 +529,7 @@ class DeviceProver:
             for j in range(rel_idx * qd, min(rel_idx * qd + qd, num_var_polys)):
                 w = var_flat[j]
                 lhs = lhs * EV(*affine(w, sigma_flat[j], beta, gamma))
-                rhs = rhs * EV(*affine(w, gl.mul(x_lde, non_res[j]), beta, gamma))
+                rhs = rhs * EV(*affine(w, gl.mul(x_lde, non_res.ints[j]), beta, gamma))
             acc = acc + (lhs - rhs).scale(a)
         del lhs_list, rhs_list, z_shifted
         stage("quotient sweep")

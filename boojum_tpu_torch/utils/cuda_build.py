@@ -20,7 +20,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 KERNELS = ("ntt_stage", "poseidon2", "ntt_small", "sha256_witness",
-           "poseidon", "blake2s", "keccak")
+           "poseidon", "blake2s", "keccak", "stage23")
 
 _LIBS: dict = {}  # kernel handles: name -> ctypes.CDLL
 
@@ -73,6 +73,14 @@ _SIGNATURES = {
     "keccak": {
         "keccak_leaf_hashes": [_P, _P, _I, _LL, _LL, _P],
         "keccak_node_layers": [_P, _P, _LL, _I, _P, _P],
+    },
+    "stage23": {
+        # witness, setup, x, non-residues, scalars, sel (None: no
+        # selector), out, the int64 parameter array, stream
+        "stage23_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P],
+        # out, block-product scratch (None: one block), n, chunks, row
+        # stride of out, stream
+        "stage23_scan": [_P, _P, _LL, _I, _LL, _P],
     },
 }
 

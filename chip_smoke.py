@@ -31,10 +31,18 @@ boundaries of both hashes, and on a strided view; `*_node_layers`, every
 node layer of a tree in one launch (two above 2^17 leaves), against the
 plain per-layer chain at
 m = 2, 32 and 1000 with cap 1, at every tree of a prove (2^19, 2^16, 2^13,
-2^10, 2^7 and 2^4 leaves, cap 16) and at caps 1 and 4); every shape it
+2^10, 2^7 and 2^4 leaves, cap 16) and at caps 1 and 4), and the two
+kernels of stages 2+3 (`stage23_rows` and `stage23_scan` of
+`csrc/stage23.cu`) against `stage23_plain` at 32, 256, 512 and 4096 rows
+and at the flagship's key, with a zero lookup aggregate, a zero table
+aggregate and a zero copy-permutation denominator among the rows (the scan
+also alone against the plain grand product and partials); every shape it
 times is held against the plain version first. Then it drives these
 paths, each with the launch counts set to 0 just before it and read just
-after:
+after; the single-device proves of a path (each path counts its own) must
+launch `stage23_rows` once each and `stage23_scan` as often as their row
+counts ask (`stage23.scan_launches`), and no plain version (after the
+paths both kernels are held and timed at every key the proves launched):
 
 - the flagship: proves the 8 kB SHA-256 circuit (2^16 rows, LDE 8, cap 16,
   Poseidon transcript, Poseidon2 trees) through the port's entry points and
@@ -1424,6 +1432,263 @@ def check_bytes_hash(rng):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# stages 2+3 (csrc/stage23.cu): the row kernel and the scan
+# ---------------------------------------------------------------------------
+
+
+STAGE23_SOURCE = "boojum_tpu_torch/csrc/stage23.cu"
+STAGE23_REPLACES = "boojum_tpu/prover/device_prover.py:1704"
+# the row-kernel keys (`stage23.Launch.key`) that the proves of every path
+# launched, with their launches, gathered by `reset_counts` and
+# `stage23_path_shapes`
+STAGE23_SHAPES = collections.Counter()
+STAGE23_ITERS = 20
+
+
+def stage23_path_shapes():
+    """Moves the row-kernel launches by key since the last call into
+    STAGE23_SHAPES."""
+    from boojum_tpu_torch.prover import stage23
+    for key, n in stage23.SHAPES.items():
+        if key[0] == "rows":
+            STAGE23_SHAPES[key] += n
+    stage23.SHAPES.clear()
+
+
+def stage23_key(n, nv, qd, mode=None, nsub=0, width=0, ntid=0, ntab=0,
+                consts=4):
+    """A row-kernel key for made-up inputs: witness (n, nv + 1) with the
+    multiplicity last; setup (n, nv + consts + ntab), the table ids first
+    among the constants; lookups "specialized" (width columns a repetition
+    at the end of the variables, the id in a constant column) or
+    "general" (width + 1 columns from column 0, a selector)."""
+    from boojum_tpu_torch.prover import stage23
+    lk = None
+    if mode:
+        pw = width if mode == "specialized" else width + 1
+        lk = stage23.LookupInputs(
+            beta=None, gamma_pows=None, width=width, pw=pw,
+            base_off=nv - nsub * pw if mode == "specialized" else 0,
+            num_subargs=nsub, tid_cols=tuple(range(nv, nv + ntid)),
+            table_off=nv + consts, num_table=ntab, mult_col=nv)
+    kw, ks = nv + 1, nv + consts + ntab
+    return ("rows",) + tuple(stage23.row_params(n, nv, qd, kw, ks, lk, kw,
+                                                ks)[:15]) + (
+        mode == "general",)
+
+
+def stage23_inputs(rng, key, device_scalars):
+    """Random inputs on the card for a row-kernel key, as `stage23.stage23`
+    arguments (`stage23.random_inputs`: the table ids in the first constant
+    columns), and the rows made zero: a zero aggregate of repetition 0 on
+    row n/3, of the table on row n/2 (with lookups), and a zero denominator
+    of copy column 0 on row 2n/3 (z is zero after it). The challenges are
+    device scalars (`ext2.PreparedExt`) or host pairs."""
+    from boojum_tpu_torch.prover import stage23
+    (n, nv, qd, ldw, lds, _, lookup, nsub, pw, base_off, width, ntid,
+     table_off, ntab, mult_col, has_sel) = key[1:]
+    lk = None
+    if lookup:
+        lk = dict(width=width, pw=pw, base_off=base_off, num_subargs=nsub,
+                  tid_cols=tuple(range(nv, nv + ntid)), table_off=table_off,
+                  num_table=ntab, mult_col=mult_col, sel=has_sel)
+    rows = dict(a=n // 3, b=n // 2, den=2 * n // 3)
+    inputs = stage23.random_inputs(rng, n, nv, qd, ldw, lds, lk,
+                                   (rows["a"], rows["b"], rows["den"]))
+    if not lookup:
+        del rows["a"], rows["b"]
+    return stage23.args_on(inputs, "cuda", device_scalars), rows
+
+
+def stage23_plain_scan(rows_out, chunks):
+    """The scan's plain version over the row kernel's output: z, the
+    exclusive prefix product of the totals (`device.grand_product_
+    exclusive`), then the partials, in the z and partial columns."""
+    from boojum_tpu_torch.field import extension as ext2
+    from boojum_tpu_torch.prover import device as dops
+    out = rows_out.clone()
+    part = dops.grand_product_exclusive((out[:, 0], out[:, 1]))
+    out[:, 0], out[:, 1] = part
+    for c in range(chunks - 1):
+        part = ext2.mul(part, (out[:, 2 + 2 * c], out[:, 3 + 2 * c]))
+        out[:, 2 + 2 * c], out[:, 3 + 2 * c] = part
+    return out
+
+
+# field multiplies of an ext product (Karatsuba: three products; the
+# non-residue 7 is a shift and a subtraction) and of one base inversion by
+# `stage23.INVERSE_CHAIN` (63 squarings, 9 multiplies)
+EXT_MUL, CHAIN_MULS = 3, 72
+
+
+def stage23_row_muls(nv, qd, lookup, nsub, pw, ntid, ntab, has_sel):
+    """The least field multiplies a row of `stage23_rows`' function needs,
+    whatever the kernel does: each copy factor w + (β·k_j)·x + γ or
+    w + β·σ_j + γ takes 2 (β·k_j is one constant a column), each chunk's
+    numerator and denominator the product of its factors, each chunk's
+    ratio one product, the row's total G - 1; every inverse of the row (G
+    denominators, with lookups an aggregate a repetition and the table's)
+    the norm c0^2 - 7·c1^2 (2) and the conjugate's scaling (2), all the
+    row's norms in one batch inversion that masks zeros (3 a norm and one
+    chain); an aggregate β_l + Σ γ^t·col_t (+ γ^width·id) 2 a column past
+    γ^0 = 1, sel and the multiplicity 2 each."""
+    chunks = -(-nv // qd)
+    inverses = chunks + (nsub + 1 if lookup else 0)
+    muls = 4 * nv + EXT_MUL * (2 * (nv - chunks) + 2 * chunks - 1) \
+        + 7 * inverses - 3 + CHAIN_MULS
+    if lookup:
+        muls += nsub * 2 * (pw - 1 + (ntid > 0) + has_sel) \
+            + 2 * (ntab - 1) + 2
+    return muls
+
+
+def stage23_bounds(key):
+    """The bound of each kernel at a key: the larger of its bytes (each
+    input read once, each output written once) at the HBM rate and the
+    field multiplies its function needs (`stage23_row_muls`; the scan's:
+    z's product and the G - 1 partials, an ext product each a row) at
+    IMAD_PER_FIELD_MUL each."""
+    (n, nv, qd, _, _, ldo, lookup, nsub, pw, base_off, width, ntid,
+     table_off, ntab, mult_col, has_sel) = key[1:]
+    chunks = -(-nv // qd)
+    wit_cols = set(range(nv)) | {mult_col} if lookup else set(range(nv))
+    setup_cols = set(range(nv))
+    if lookup:
+        wit_cols |= set(range(base_off, base_off + nsub * pw))
+        setup_cols |= set(range(nv, nv + ntid)) | set(
+            range(table_off, table_off + ntab))
+    rows_bytes = 8 * n * (len(wit_cols) + len(setup_cols) + 1 + has_sel
+                          + ldo)
+    scan_bytes = 8 * n * 2 * (2 * chunks)
+    return (bound(rows_bytes, n * stage23_row_muls(
+        nv, qd, lookup, nsub, pw, ntid, ntab, has_sel)),
+        bound(scan_bytes, n * EXT_MUL * chunks))
+
+
+def check_stage23(rng, key, timed=False, device_scalars=True):
+    """`stage23.stage23` on the card at a row-kernel key against
+    `stage23_plain` on the same inputs (with zero rows: `stage23_inputs`),
+    bit-equal, the zero rows showing; the scan alone against its plain
+    version over the same row-kernel output; with ``timed`` each kernel
+    alone, the plain versions and the bounds. Returns the largest error and
+    the timings by kernel."""
+    import numpy as np
+    import torch
+    from boojum_tpu_torch.field import goldilocks as gl
+    from boojum_tpu_torch.prover import stage23
+    args, rows = stage23_inputs(rng, key, device_scalars)
+    got = stage23.stage23(*args)
+    want, plain_ms = plain_run(lambda: stage23.stage23_plain(*args), timed)
+    what = "stage23 %s" % (key[1:],)
+    err = require_equal(got, want, what)
+    host = gl.to_u64(got)
+    chunks = -(-key[2] // key[3])
+    zeros = host[rows["den"] + 1:, :2].any() or not host[rows["den"], :2].any()
+    if "a" in rows:
+        zeros = zeros or host[rows["a"], 2 * chunks:2 * chunks + 2].any() \
+            or host[rows["b"], -2:].any()
+    if zeros:
+        raise AssertionError("%s: the zero rows do not show" % what)
+    launch = stage23.Launch(*args)
+    launch.rows()
+    rows_out = launch.out.clone()
+    launch.scan()
+    want_scan, scan_plain_ms = plain_run(
+        lambda: stage23_plain_scan(rows_out, chunks), timed)
+    err = max(err, require_equal(launch.out, want_scan, what + " scan"))
+    if not timed:
+        return err, None
+    (rb, rby), (sb, sby) = stage23_bounds(key)
+    rows_ms = cuda_ms(launch.rows, STAGE23_ITERS)
+    scan_ms = cuda_ms(launch.scan, STAGE23_ITERS)
+    out = {"stage23_rows": dict(err=err, ms=rows_ms, plain_ms=plain_ms,
+                                bound_ms=rb, bound_by=rby),
+           "stage23_scan": dict(err=err, ms=scan_ms, plain_ms=scan_plain_ms,
+                                bound_ms=sb, bound_by=sby)}
+    for name, t in out.items():
+        log("%s %s: bit-equal, %.4f ms, plain %.3f ms (%s), bound %.3g ms "
+            "(%s), %.1f%% of bound" % (
+                name, key[1:], t["ms"], t["plain_ms"],
+                "the whole stage23_plain" if name == "stage23_rows"
+                else "grand product and partials", t["bound_ms"],
+                t["bound_by"], 100 * t["bound_ms"] / t["ms"]))
+    torch.cuda.synchronize()
+    return err, out
+
+
+# the flagship's row-kernel key (2^16 rows, 92 copy columns of which 32
+# are the 8 width-4 lookups', quotient degree 4, one shared table id, 8
+# constant and 5 table columns) for --kernels-only; the proves' own keys
+# are checked after the paths
+STAGE23_FLAGSHIP_KEY = dict(n=1 << 16, nv=92, qd=4, mode="specialized",
+                            nsub=8, width=4, ntid=1, ntab=5, consts=8)
+
+
+def check_stage23_kernels(rng):
+    """Both stage-2+3 kernels bit-equal to their plain versions at made-up
+    keys around the scan's block (32 rows, one block of 256, 512) and the
+    recursion outer circuit's width (132 copy columns, no lookups), in both
+    lookup modes, with host and device challenges, and at the flagship's
+    key (timed)."""
+    errs = []
+    for kw, dev in ((dict(n=32, nv=14, qd=4, mode="specialized", nsub=2,
+                          width=3, ntid=2, ntab=4), False),
+                    (dict(n=256, nv=20, qd=8, mode="general", nsub=4,
+                          width=3, ntab=4), True),
+                    (dict(n=512, nv=132, qd=8), True),
+                    (dict(n=1 << 12, nv=11, qd=4, mode="specialized",
+                          nsub=1, width=3, ntid=1, ntab=4), False)):
+        errs.append(check_stage23(rng, stage23_key(**kw),
+                                  device_scalars=dev)[0])
+    err, timing = check_stage23(rng, stage23_key(**STAGE23_FLAGSHIP_KEY),
+                                timed=True)
+    log("stage23_rows / stage23_scan: bit-equal at n = 32, 256, 512, 4096 "
+        "and the flagship's key, the zero rows showing")
+    from boojum_tpu_torch.prover import stage23
+    stage23.SHAPES.clear()  # made-up keys, not a prove's
+    return max(errs + [err]), timing
+
+
+def check_stage23_prove_shapes(rng):
+    """Both kernels at every row-kernel key that the proves launched
+    (STAGE23_SHAPES), each against its plain version and timed; returns
+    the largest error, the timings by key and the sums of launches x time
+    and x bound."""
+    stage23_path_shapes()
+    errs, timings = [], {}
+    for key, launches in sorted(STAGE23_SHAPES.items()):
+        err, t = check_stage23(rng, key, timed=True)
+        errs.append(err)
+        timings[key] = (launches, t)
+    log("stage23 prove keys (launches, rows ms, scan ms): %s" % json.dumps(
+        [[list(k[1:]), n, round(t["stage23_rows"]["ms"], 4),
+          round(t["stage23_scan"]["ms"], 4)]
+         for k, (n, t) in timings.items()]))
+    return max(errs), timings
+
+
+def check_stage23_launches(counts, what, proves):
+    """The ``proves`` single-device proves of a path (each path knows its
+    own) launched stage23_rows once each and stage23_scan as often as
+    their row counts ask (`stage23.scan_launches`, from the row-kernel
+    keys of the path in `stage23.SHAPES`), and no plain version ran."""
+    from boojum_tpu_torch.prover import stage23
+    keys = {k: c for k, c in stage23.SHAPES.items() if k[0] == "rows"}
+    scans = sum(c * stage23.scan_launches(k[1]) for k, c in keys.items())
+    log("%s: %d single-device proves, stage23_rows %d, stage23_scan %d "
+        "launches (%d wanted)" % (what, proves, counts["stage23_rows"],
+                                  counts["stage23_scan"], scans))
+    if counts["stage23_rows"] != proves or sum(keys.values()) != proves \
+            or counts["stage23_scan"] != scans:
+        raise AssertionError("the %s proves (%d) launched stage23_rows %d "
+                             "and stage23_scan %d times (%d wanted)" % (
+                                 what, proves, counts["stage23_rows"],
+                                 counts["stage23_scan"], scans))
+    if counts["plain_on_cuda"]:
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+
 def reset_counts():
     from boojum_tpu_torch.gadgets import sha256_witness as sw
     from boojum_tpu_torch.hash import device_bytes_hash as dbh
@@ -1444,6 +1709,10 @@ def reset_counts():
     dbh.NODE_LAUNCHES.clear()
     dbh.SHAPES.clear()
     dbh.PLAIN_CUDA_CALLS = 0
+    from boojum_tpu_torch.prover import stage23
+    stage23_path_shapes()  # the last path's row-kernel keys, kept
+    stage23.LAUNCHES.clear()
+    stage23.PLAIN_CUDA_CALLS = 0
 
 
 def read_counts():
@@ -1455,6 +1724,7 @@ def read_counts():
     from boojum_tpu_torch.hash import poseidon
     from boojum_tpu_torch.ntt import mxu_ntt
     from boojum_tpu_torch.ntt import pallas_ntt as pn
+    from boojum_tpu_torch.prover import stage23
     return dict(ntt_stage=mxu_ntt.LAUNCHES, poseidon2_permute=pp.LAUNCHES,
                 poseidon2_leaf_hashes=pp.LEAF_LAUNCHES,
                 poseidon2_node_layer=pp.NODE_LAUNCHES,
@@ -1468,9 +1738,12 @@ def read_counts():
                 blake2s_node_layers=dbh.NODE_LAUNCHES["blake2s"],
                 keccak256_leaf_hashes=dbh.LEAF_LAUNCHES["keccak256"],
                 keccak256_node_layers=dbh.NODE_LAUNCHES["keccak256"],
+                stage23_rows=stage23.LAUNCHES["stage23_rows"],
+                stage23_scan=stage23.LAUNCHES["stage23_scan"],
                 plain_on_cuda=mxu_ntt.PLAIN_CUDA_CALLS + pp.PLAIN_CUDA_CALLS
                 + pn.PLAIN_CUDA_CALLS + sw.PLAIN_CUDA_CALLS
-                + poseidon.PLAIN_CUDA_CALLS + dbh.PLAIN_CUDA_CALLS,
+                + poseidon.PLAIN_CUDA_CALLS + dbh.PLAIN_CUDA_CALLS
+                + stage23.PLAIN_CUDA_CALLS,
                 torch_twiddle_muls=pn.TORCH_TWIDDLE_MULS)
 
 
@@ -1834,8 +2107,7 @@ def flagship():
     if counts["poseidon2_node_layer"]:
         raise AssertionError("the main path launched poseidon2_node_layer "
                              "(a tree's node layers take node_layers)")
-    if counts["plain_on_cuda"]:
-        raise AssertionError("a plain version ran on a CUDA tensor")
+    check_stage23_launches(counts, "flagship", 1 + 2 * WARM_ROUNDS)
     if per_prove["sha256_witness"] != 1 or per_prove["poseidon_sponge"] < 2:
         raise AssertionError("the default prove should launch sha256_witness "
                              "once and poseidon_sponge more than once, got %d "
@@ -1976,8 +2248,7 @@ def poseidon_tree_flagship(ctx):
     if counts["poseidon2_leaf_hashes"] or counts["poseidon2_node_layer"] or \
             counts["poseidon2_node_layers"]:
         raise AssertionError("the %s path hashed with Poseidon2 trees" % name)
-    if counts["plain_on_cuda"]:
-        raise AssertionError("a plain version ran on a CUDA tensor")
+    check_stage23_launches(counts, name, 2 + PTREE_WARM_PROVES)
     if host_witness:
         raise AssertionError("the %s prove called materialize_witness_"
                              "columns %d times" % (name, host_witness))
@@ -2106,8 +2377,7 @@ def sharded_flagship(ctx):
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the %s path"
                                  % (kernel, name))
-    if counts["plain_on_cuda"]:
-        raise AssertionError("a plain version ran on a CUDA tensor")
+    check_stage23_launches(counts, name, 0)
     return counts, (art.vk, proof)
 
 
@@ -2162,8 +2432,7 @@ def host_prove_path():
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the host prove path"
                                  % kernel)
-    if counts["plain_on_cuda"]:
-        raise AssertionError("a plain version ran on a CUDA tensor")
+    check_stage23_launches(counts, "host prove", 0)
     return counts, proofs
 
 
@@ -2247,8 +2516,7 @@ def byte_flagship(ctx, kind, warm):
         if counts[name] <= 0:
             raise AssertionError("%s never launched on the %s path"
                                  % (name, kind))
-    if counts["plain_on_cuda"]:
-        raise AssertionError("a plain version ran on a CUDA tensor")
+    check_stage23_launches(counts, "%s flagship" % kind, 1 + warm)
     if counts["poseidon2_leaf_hashes"] or counts["poseidon_sponge"] or \
             counts["poseidon_leaf_hashes"]:
         raise AssertionError("the %s configuration hashed with Poseidon2 "
@@ -2440,8 +2708,7 @@ def circuit_path(name, cs, ref, warm):
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the %s path"
                                  % (kernel, name))
-    if counts["plain_on_cuda"]:
-        raise AssertionError("a plain version ran on a CUDA tensor")
+    check_stage23_launches(counts, name, 2 + warm)
     if host_witness:
         raise AssertionError("the %s prove called materialize_witness_"
                              "columns %d times" % (name, host_witness))
@@ -2579,8 +2846,7 @@ def recursion_outer():
     for what, sh in (("recursion inner", inner_shapes),
                      ("recursion outer", shapes)):
         check_p2_node_launches(sh[1], what)
-    if counts["plain_on_cuda"]:
-        raise AssertionError("a plain version ran on a CUDA tensor")
+    check_stage23_launches(counts, "recursion", 3)
     return counts, {"inner setup": inner_setup, "inner prove": inner_shapes,
                     "outer setup": outer_setup, "outer prove": shapes}, dict(
         inner=(iart.vk, inner_proof), outer=(oart.vk, outer_proof))
@@ -2752,6 +3018,7 @@ def main():
     ptree_checks = check_poseidon_tree(rng)
     phase("poseidon tree checks")
     byte_checks = check_bytes_hash(rng)
+    st23_err, _ = check_stage23_kernels(rng)
     phase("kernel checks")
     if kernels_only:
         log("chip_smoke: --kernels-only, stopping after the kernel checks")
@@ -2811,6 +3078,7 @@ def main():
                 rng, label, *shapes[:2], {}, shapes[2], {}, memo)
             for name, err in errs.items():
                 prove_errs[name] = max(prove_errs[name], err)
+        st23_prove_err, st23_prove = check_stage23_prove_shapes(rng)
         # K6's row: the prove's largest absorb (the values at z)
         k6 = time_k6(rng, max(s for s in k6_shapes if s[0] == "absorb"),
                      plain=True)
@@ -2880,6 +3148,13 @@ def main():
                                BYTE_REPLACES[(algo, entry)],
                                path_counts[name],
                                max(err, prove_errs[name]), t))
+    # stages 2+3: the flagship circuit's key (the most launched: the
+    # flagship, Poseidon-tree and byte flagships prove that circuit)
+    st23_launches, st23_t = max(st23_prove.values(), key=lambda v: v[0])
+    for name in ("stage23_rows", "stage23_scan"):
+        kernels.append(row(name, STAGE23_SOURCE, STAGE23_REPLACES,
+                           counts[name] + b2s_counts[name] + kec_counts[name],
+                           max(st23_err, st23_prove_err), st23_t[name]))
     log("verify seconds per proof: " + json.dumps(verify_secs))
     log("summary: " + json.dumps(dict(per_prove=path_costs, sass={
         k: {f: v[f] for f in ("total", "integer", "imad", "integer_per_pass",

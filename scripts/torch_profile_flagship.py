@@ -129,12 +129,16 @@ def main():
     from boojum_tpu_torch.hash import poseidon
     from boojum_tpu_torch.ntt import mxu_ntt
     from boojum_tpu_torch.ntt import pallas_ntt as pn
+    from boojum_tpu_torch.prover import stage23
 
     def launches():
         """The hand kernels' launch counters."""
         return dict(ntt_stage=mxu_ntt.LAUNCHES, ntt_small=pn.LAUNCHES,
                     poseidon2_leaf_hashes=pp.LEAF_LAUNCHES,
                     poseidon2_node_layer=pp.NODE_LAUNCHES,
+                    poseidon2_node_layers=pp.NODE_LAYERS_LAUNCHES,
+                    stage23_rows=stage23.LAUNCHES["stage23_rows"],
+                    stage23_scan=stage23.LAUNCHES["stage23_scan"],
                     poseidon_sponge=poseidon.LAUNCHES,
                     poseidon_leaf_hashes=poseidon.LEAF_LAUNCHES,
                     poseidon_node_layer=poseidon.NODE_LAUNCHES,

@@ -12,8 +12,10 @@ split; the Blake2s and
 Keccak-256 leaf entries at the block-boundary widths and the flagship's
 widest leaf, and their node-layers entries against the plain per-layer
 chain), the device witness program of a small SHA-256
-circuit on the card against the CPU, and a small Blake2s and Keccak-256
-proof on the card against the CPU. It skips
+circuit on the card against the CPU, a small Blake2s and Keccak-256
+proof on the card against the CPU, and the two kernels of stages 2+3
+against their plain version at the flagship's shape (with zero rows). It
+skips
 without a GPU. This file
 imports no JAX, so on the GPU machine (which has none) it runs without the
 suite's conftest:
@@ -310,3 +312,40 @@ def test_device_witness_on_gpu_equals_cpu(cuda):
     got = DeviceWitnessProgram(cs, n, cuda)()
     want = DeviceWitnessProgram(cs, n, "cpu")()
     assert torch.equal(got.cpu(), want)
+
+
+# the flagship's layout: 2^16 rows, 92 copy columns (the last 32 the 8
+# width-4 lookups'), the multiplicity after them, 8 constants (the table
+# id first) and 5 table columns
+FLAGSHIP_STAGE23 = dict(n=1 << 16, num_var=92, qd=4, wit_cols=93,
+                        setup_cols=105, lookup=dict(
+                            width=4, pw=4, base_off=60, num_subargs=8,
+                            tid_cols=(92,), table_off=100, num_table=5,
+                            mult_col=92, sel=False))
+
+
+@pytest.mark.parametrize("layout,device_scalars", [
+    (FLAGSHIP_STAGE23, True),
+    (FLAGSHIP_STAGE23, False),
+    (dict(n=32, num_var=20, qd=8, wit_cols=21, setup_cols=28, lookup=dict(
+        width=3, pw=4, base_off=0, num_subargs=4, tid_cols=(),
+        table_off=24, num_table=4, mult_col=20, sel=True)), True),
+    # the recursion outer circuit's
+    (dict(n=4096, num_var=132, qd=16, wit_cols=132, setup_cols=142), True),
+])
+def test_stage23_equals_plain(cuda, layout, device_scalars):
+    """Both kernels of stages 2+3 (`stage23_rows`, `stage23_scan`) against
+    `stage23_plain` on the same inputs, with a zero lookup aggregate, a zero
+    table aggregate and a zero copy-permutation denominator among the rows
+    (`stage23.random_inputs`)."""
+    from boojum_tpu_torch.prover import stage23
+    n = layout["n"]
+    inputs = stage23.random_inputs(np.random.default_rng(15), **layout,
+                                   zero_rows=(n // 3, n // 2, 2 * n // 3))
+    args = stage23.args_on(inputs, cuda, device_scalars)
+    before = stage23.LAUNCHES.copy()
+    got = stage23.stage23(*args)
+    launched = stage23.LAUNCHES - before
+    assert launched == {"stage23_rows": 1,
+                        "stage23_scan": stage23.scan_launches(n)}
+    assert torch.equal(got, stage23.stage23_plain(*args))
