@@ -1,4 +1,5 @@
-# Copied from boojum_tpu/hash/keccak.py.
+# Port of boojum_tpu/hash/keccak.py (the permutation on a flat 25-lane
+# state, its theta folded into rho and pi).
 """Keccak-256 (legacy 0x01 padding, pre-NIST) — host-side.
 
 Reference behavior: the ``sha3::Keccak256`` tree hasher / transcript
@@ -30,31 +31,43 @@ _RC = [
 _MASK = (1 << 64) - 1
 
 
-def _rol(x, s):
-    return ((x << s) | (x >> (64 - s))) & _MASK
+# rho and pi as one table on the flat state a[x + 5y] = lanes[x][y]:
+# (source, destination, rotation), b[y][(2x + 3y) % 5] = rol(a[x][y], r)
+_RHO_PI = tuple((x + 5 * y, y + 5 * ((2 * x + 3 * y) % 5), _ROT[x][y])
+                for x in range(5) for y in range(5))
+
+
+def _f1600_flat(a):
+    """Keccak-f[1600] in place on the flat 25-lane state a[x + 5y]."""
+    b = [0] * 25
+    for rc in _RC:
+        # theta
+        c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20]
+             for x in range(5)]
+        d = [c[x - 1] ^ (((c[(x + 1) % 5] << 1) | (c[(x + 1) % 5] >> 63))
+                         & _MASK) for x in range(5)]
+        # rho + pi
+        for src, dst, r in _RHO_PI:
+            v = a[src] ^ d[src % 5]
+            b[dst] = ((v << r) | (v >> (64 - r))) & _MASK if r else v
+        # chi
+        for y in range(0, 25, 5):
+            b0, b1, b2, b3, b4 = b[y:y + 5]
+            a[y] = b0 ^ (~b1 & b2)
+            a[y + 1] = b1 ^ (~b2 & b3)
+            a[y + 2] = b2 ^ (~b3 & b4)
+            a[y + 3] = b3 ^ (~b4 & b0)
+            a[y + 4] = b4 ^ (~b0 & b1)
+        # iota
+        a[0] ^= rc
+    return a
 
 
 def keccak_f1600(lanes):
     """lanes: 5x5 list of 64-bit ints, lanes[x][y]."""
-    for rnd in range(24):
-        # theta
-        c = [lanes[x][0] ^ lanes[x][1] ^ lanes[x][2] ^ lanes[x][3] ^ lanes[x][4]
-             for x in range(5)]
-        d = [c[(x - 1) % 5] ^ _rol(c[(x + 1) % 5], 1) for x in range(5)]
-        for x in range(5):
-            for y in range(5):
-                lanes[x][y] ^= d[x]
-        # rho + pi
-        b = [[0] * 5 for _ in range(5)]
-        for x in range(5):
-            for y in range(5):
-                b[y][(2 * x + 3 * y) % 5] = _rol(lanes[x][y], _ROT[x][y])
-        # chi
-        for x in range(5):
-            for y in range(5):
-                lanes[x][y] = b[x][y] ^ ((~b[(x + 1) % 5][y]) & b[(x + 2) % 5][y] & _MASK)
-        # iota
-        lanes[0][0] ^= _RC[rnd]
+    a = _f1600_flat([lanes[i % 5][i // 5] for i in range(25)])
+    for i in range(25):
+        lanes[i % 5][i // 5] = a[i]
     return lanes
 
 
@@ -64,15 +77,10 @@ def keccak256(data: bytes) -> bytes:
     padded = bytearray(data)
     pad_len = rate - (len(padded) % rate)
     padded += b"\x01" + b"\x00" * (pad_len - 2) + b"\x80" if pad_len >= 2 else b"\x81"
-    lanes = [[0] * 5 for _ in range(5)]
+    a = [0] * 25  # a[x + 5y] = lanes[x][y]: lane i of a block at a[i]
     for off in range(0, len(padded), rate):
-        block = padded[off:off + rate]
         for i in range(rate // 8):
-            x, y = i % 5, i // 5
-            lanes[x][y] ^= int.from_bytes(block[8 * i:8 * i + 8], "little")
-        lanes = keccak_f1600(lanes)
-    out = b""
-    for i in range(4):  # 32 bytes = 4 lanes
-        x, y = i % 5, i // 5
-        out += lanes[x][y].to_bytes(8, "little")
-    return out
+            a[i] ^= int.from_bytes(padded[off + 8 * i:off + 8 * i + 8],
+                                   "little")
+        _f1600_flat(a)
+    return b"".join(a[i].to_bytes(8, "little") for i in range(4))

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import operator
 
 import numpy as np
 import torch
@@ -45,7 +46,7 @@ from ..field.goldilocks import ORDER
 from . import _poseidon_constants as C
 from . import device_bytes_hash as dbh
 from . import poseidon_sparse, sponge
-from .poseidon2 import _s_sbox7, _sbox7  # same x^7 S-box
+from .poseidon2 import _RC_ROUNDS, _sbox7  # same constants, x^7 S-box
 
 STATE_WIDTH = C.STATE_WIDTH
 RATE = C.RATE
@@ -382,26 +383,26 @@ def node_layers(cur: torch.Tensor, cap_size: int) -> list:
 # ----------------------------------------------------------------------------
 
 
+_MDS_ROWS = tuple(tuple(row) for row in _MDS_POW)
+
+
 def _s_mds(state):
-    return [sum(state[c] * _MDS_POW[r][c] for c in range(12)) % ORDER for r in range(12)]
+    return [sum(map(operator.mul, state, row)) % ORDER for row in _MDS_ROWS]
 
 
 def s_permutation(state: list[int]) -> list[int]:
+    """Exact classic Poseidon permutation on one 12-element state of Python
+    ints (canonical out; the S-box x^7 by ``pow``)."""
     assert len(state) == STATE_WIDTH
-    r = 0
+    rounds = iter(_RC_ROUNDS)
     for _ in range(_R_F_HALF):
-        state = [(s + _RC[r * 12 + i]) % ORDER for i, s in enumerate(state)]
-        state = [_s_sbox7(s) for s in state]
-        state = _s_mds(state)
-        r += 1
+        state = _s_mds([pow(s + c, 7, ORDER)
+                        for s, c in zip(state, next(rounds))])
     for _ in range(_R_P):
-        state = [(s + _RC[r * 12 + i]) % ORDER for i, s in enumerate(state)]
-        state = [_s_sbox7(state[0])] + state[1:]
+        state = [s + c for s, c in zip(state, next(rounds))]
+        state[0] = pow(state[0], 7, ORDER)
         state = _s_mds(state)
-        r += 1
     for _ in range(_R_F_HALF):
-        state = [(s + _RC[r * 12 + i]) % ORDER for i, s in enumerate(state)]
-        state = [_s_sbox7(s) for s in state]
-        state = _s_mds(state)
-        r += 1
+        state = _s_mds([pow(s + c, 7, ORDER)
+                        for s, c in zip(state, next(rounds))])
     return state

@@ -1,4 +1,5 @@
-# Port of boojum_tpu/hash/poseidon2.py (the exact scalar twin is copied).
+# Port of boojum_tpu/hash/poseidon2.py (its exact scalar twin with one
+# reduction an output and the S-box by pow).
 """Poseidon2 permutation over Goldilocks, width 12.
 
 Reference behavior: src/implementations/poseidon2/state_generic_impl.rs
@@ -150,57 +151,43 @@ def _permutation_one(st: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------------
 
 
-def _s_sbox7(x: int) -> int:
-    x2 = x * x % ORDER
-    x3 = x2 * x % ORDER
-    x4 = x2 * x2 % ORDER
-    return x3 * x4 % ORDER
-
-
-def _s_block_mul4(x0, x1, x2, x3):
-    t0 = (x0 + x1) % ORDER
-    t1 = (x2 + x3) % ORDER
-    t2 = (2 * x1 + t1) % ORDER
-    t3 = (2 * x3 + t0) % ORDER
-    t4 = (4 * t1 + t3) % ORDER
-    t5 = (4 * t0 + t2) % ORDER
-    t6 = (t3 + t5) % ORDER
-    t7 = (t2 + t4) % ORDER
-    return t6, t5, t7, t4
+# round constants a round, as tuples
+_RC_ROUNDS = tuple(tuple(_RC[r * 12:(r + 1) * 12])
+                   for r in range(2 * _R_F_HALF + _R_P))
 
 
 def s_external_mds(state):
-    b = [_s_block_mul4(*state[0:4]), _s_block_mul4(*state[4:8]), _s_block_mul4(*state[8:12])]
-    out = [0] * 12
-    for blk in range(3):
-        for i in range(4):
-            out[blk * 4 + i] = (b[blk][i] + b[0][i] + b[1][i] + b[2][i]) % ORDER
-    return out
+    """The block circulant [[2,1,1],[1,2,1],[1,1,2]] of M4 blocks; sums
+    stay unreduced (a few bits past 64) until the one reduction an output."""
+    blocks = []
+    for i in (0, 4, 8):
+        x0, x1, x2, x3 = state[i:i + 4]
+        t0, t1 = x0 + x1, x2 + x3
+        t2, t3 = 2 * x1 + t1, 2 * x3 + t0
+        t4, t5 = 4 * t1 + t3, 4 * t0 + t2
+        blocks.append((t3 + t5, t5, t2 + t4, t4))
+    total = [a + b + c for a, b, c in zip(*blocks)]
+    return [(v + t) % ORDER for blk in blocks for v, t in zip(blk, total)]
 
 
 def s_internal_matrix(state):
-    total = sum(state) % ORDER
-    return [(s * (1 << _DIAG_SHIFTS[i]) + total) % ORDER for i, s in enumerate(state)]
+    total = sum(state)
+    return [((s << sh) + total) % ORDER for s, sh in zip(state, _DIAG_SHIFTS)]
 
 
 def s_permutation(state: list[int]) -> list[int]:
-    """Exact Poseidon2 permutation on one 12-element state of Python ints."""
+    """Exact Poseidon2 permutation on one 12-element state of Python ints
+    (canonical out; the S-box x^7 by ``pow``)."""
     assert len(state) == STATE_WIDTH
     state = s_external_mds(state)
-    r = 0
+    rounds = iter(_RC_ROUNDS)
     for _ in range(_R_F_HALF):
-        state = [(s + _RC[r * 12 + i]) % ORDER for i, s in enumerate(state)]
-        state = [_s_sbox7(s) for s in state]
-        state = s_external_mds(state)
-        r += 1
+        state = s_external_mds([pow(s + c, 7, ORDER)
+                                for s, c in zip(state, next(rounds))])
     for _ in range(_R_P):
-        state = list(state)
-        state[0] = _s_sbox7((state[0] + _RC[r * 12]) % ORDER)
+        state[0] = pow(state[0] + next(rounds)[0], 7, ORDER)
         state = s_internal_matrix(state)
-        r += 1
     for _ in range(_R_F_HALF):
-        state = [(s + _RC[r * 12 + i]) % ORDER for i, s in enumerate(state)]
-        state = [_s_sbox7(s) for s in state]
-        state = s_external_mds(state)
-        r += 1
+        state = s_external_mds([pow(s + c, 7, ORDER)
+                                for s, c in zip(state, next(rounds))])
     return state

@@ -18,23 +18,25 @@ the table columns and the multiplicity m. A zero aggregate inverts to 0
 (so a bad lookup shows in the quotient's top-coefficient check).
 
 `stage23` launches two Hopper kernels on CUDA tensors
-(``csrc/stage23.cu``): ``stage23_rows`` (one thread a row: every chunk's
-products and ratio, their total, every aggregate and its inverse, the A and
-B columns written straight into the output, the ratios and the total into
-the z and partial columns as scratch) and ``stage23_scan`` (the exclusive
-GL2 prefix product of the totals in blocks of `SCAN_BLOCK` rows: the block
-products, a scan of them, and a pass that scans each block from its
-prefix and writes z and the partials; one launch when n fits one block).
-Every inverse is a Fermat power of the element's norm (`inverse_chain`:
-63 squarings and 9 multiplies), so a zero maps to zero element by element.
-On CPU tensors it runs `stage23_plain`: `stage23_ops`, the port's
-op-by-op body of the two stages, which the sharded prove runs with the
-distributed grand product.
+(``csrc/stage23.cu``), one launch each: ``stage23_rows`` (a few lanes a
+row, the row staged in shared memory: every chunk's products and ratio,
+their total, every aggregate, one masked batch inversion of all the row's
+norms by one Fermat chain (`inverse_chain`: 63 squarings and 9
+multiplies), the A and B columns written straight into the output, the
+ratios and the total into the z and partial columns as scratch) and
+``stage23_scan`` (the exclusive GL2 prefix product of the totals and the
+partials over the scratch, in one single-pass launch: tiles of
+`SCAN_TILE` rows by atomic ticket with decoupled look-back, its status
+words `scan_status`). A zero maps to zero element by element, as the
+reference's inverse maps it. On CPU tensors it runs `stage23_plain`:
+`stage23_ops`, the port's op-by-op body of the two stages, which the
+sharded prove runs with the distributed grand product.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,10 +55,20 @@ PLAIN_CUDA_CALLS = 0
 # launches by shape: ("rows",) + the row kernel's first 15 parameters
 # (`row_params`) + (a selector or not,), and ("scan", n, G)
 SHAPES = collections.Counter()
-# rows a block of the scan (csrc/stage23.cu SCAN_BLOCK)
-SCAN_BLOCK = 256
+# rows a tile of the scan (csrc/stage23.cu SCAN_TILE)
+SCAN_TILE = 512
 # table-id columns the row kernel takes (csrc/stage23.cu MAX_TID)
 MAX_TID = 64
+# inverses a row the row kernel takes: 32 lanes of 16 slots
+# (csrc/stage23.cu ROUNDS_LARGE)
+MAX_INVERSES = 512
+# the scan's status words: the ticket counter's head, then words a tile
+# (csrc/stage23.cu STATUS_HEAD, STATUS_WORDS)
+STATUS_HEAD, STATUS_WORDS = 8, 8
+# (device, stream) -> the scan's zeroed status words there (`scan_status`)
+_STATUS = {}
+# the scans' epochs: each call takes a new one (`scan_status`)
+_EPOCHS = itertools.count(1)
 
 
 @dataclass(frozen=True)
@@ -250,7 +262,7 @@ def stage23(wit: torch.Tensor, setup: torch.Tensor, x_vals: torch.Tensor,
     (n, k') (row-major, any row stride), ``x_vals`` (n,) = ω^i, the
     num_var non-residues ``non_res`` and the challenges β,
     γ (host pairs or device `ext2.PreparedExt`). On CUDA tensors: one
-    ``stage23_rows`` launch and one or three ``stage23_scan`` launches, no
+    ``stage23_rows`` launch and one ``stage23_scan`` launch, no
     synchronization; on CPU tensors `stage23_plain`."""
     n = wit.shape[0]
     _check(wit, "the witness", n, 2)
@@ -279,7 +291,8 @@ def stage23(wit: torch.Tensor, setup: torch.Tensor, x_vals: torch.Tensor,
 class Launch:
     """One `stage23` call on CUDA tensors, its arguments prepared: `rows`
     and `scan` launch the two kernels into ``out`` (n, 2·k2), each counted
-    (`chip_smoke.py` also times each alone)."""
+    (`chip_smoke.py` also times each alone); ``prods`` are the scan's
+    status words (`scan_status`)."""
 
     def __init__(self, wit, setup, x_vals, non_res: NonResidues, beta,
                  gamma, qd: int, lookup: LookupInputs = None):
@@ -310,6 +323,9 @@ class Launch:
         params = row_params(n, len(non_res), qd, wit.stride(0),
                             setup.stride(0), lookup, wit.shape[1],
                             setup.shape[1])
+        if params[5] // 2 > MAX_INVERSES:
+            raise ValueError("stage23's row kernel takes at most %d inverses "
+                             "a row, got %d" % (MAX_INVERSES, params[5] // 2))
         # the tensors the launches read, kept alive with the launch
         self.inputs = (wit, setup, x_vals.contiguous(), non_res_dev,
                        _scalars(scal, dev), sel)
@@ -317,10 +333,9 @@ class Launch:
         self.key = ("rows",) + tuple(params[:15]) + (sel is not None,)
         self.n, self.chunks = n, -(-len(non_res) // qd)
         self.out = wit.new_empty((n, params[5]))
-        blocks = -(-n // SCAN_BLOCK)
-        self.prods = self.out.new_empty((blocks, 2)) if blocks > 1 else None
         self.lib = cuda_build.load("stage23")
         self.stream = cuda_build.stream_handle(wit)
+        self.prods = scan_status(dev, self.stream, n)
 
     def rows(self):
         from ..utils import cuda_build
@@ -336,16 +351,38 @@ class Launch:
         from ..utils import cuda_build
 
         cuda_build.check(self.lib.stage23_scan(
-            self.out.data_ptr(),
-            None if self.prods is None else self.prods.data_ptr(), self.n,
-            self.chunks, self.out.shape[1], self.stream), "stage23_scan")
+            self.out.data_ptr(), self.prods.data_ptr(), self.n, self.chunks,
+            self.out.shape[1], new_epoch(), self.stream), "stage23_scan")
         LAUNCHES["stage23_scan"] += scan_launches(self.n)
         SHAPES[("scan", self.n, self.chunks)] += 1
 
 
 def scan_launches(n: int) -> int:
     """Kernel launches of one `stage23_scan` call over n rows."""
-    return 1 if n <= SCAN_BLOCK else 3
+    return 1
+
+
+def scan_status(device, stream: int, n: int) -> torch.Tensor:
+    """The scan's status words for n rows on ``stream`` of ``device``: the
+    ticket counter, then a flag, the aggregate and the inclusive prefix a
+    tile (csrc/stage23.cu). They are zeroed once, when a stream first needs
+    this many tiles; the kernel leaves the counter at 0 and tags each flag
+    with its call's epoch (`new_epoch`), so no call clears them and calls on
+    one stream reuse them."""
+    key = (torch.device(device), stream)
+    words = STATUS_HEAD + STATUS_WORDS * -(-n // SCAN_TILE)
+    status = _STATUS.get(key)
+    if status is None or status.numel() < words:
+        grown = max(words, 2 * status.numel() if status is not None else 0)
+        status = _STATUS[key] = torch.zeros(grown, dtype=torch.int64,
+                                            device=device)
+    return status
+
+
+def new_epoch() -> int:
+    """A scan epoch above every earlier one (csrc/stage23.cu: a status flag
+    is epoch << 2 | state)."""
+    return next(_EPOCHS)
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +393,7 @@ def scan_launches(n: int) -> int:
 
 def random_inputs(rng, n: int, num_var: int, qd: int, wit_cols: int,
                   setup_cols: int, lookup: dict = None,
-                  zero_rows: tuple = None) -> dict:
+                  zero_rows: tuple = None, zero_slots: dict = None) -> dict:
     """Random canonical host inputs of `stage23` from the numpy generator
     ``rng``: witness (n, wit_cols), setup (n, setup_cols), x, the num_var
     non-residues and β, γ; with ``lookup`` (`LookupInputs`' column fields
@@ -364,9 +401,13 @@ def random_inputs(rng, n: int, num_var: int, qd: int, wit_cols: int,
     every third row) the lookup β_l and γ^0 .. γ^max(width, num_table - 1)
     too. ``zero_rows`` (a, b, den) makes repetition 0's aggregate zero on
     row a and the table aggregate on row b (with lookups), and copy column
-    0's denominator on row den (z is zero after it). Returns the keyword
-    arguments of `stage23` as numpy arrays and Python ints (``lookup`` a
-    dict, ``non_res`` a list)."""
+    0's denominator on row den (z is zero after it). ``zero_slots`` maps a
+    row to the inverses (slots, as the row kernel numbers them) made zero
+    there: slot k < G chunk k's denominator (through one of its columns
+    that no repetition's first two columns take), G + r repetition r's
+    aggregate, G + num_subargs the table's. Returns the keyword arguments
+    of `stage23` as numpy arrays and Python ints (``lookup`` a dict,
+    ``non_res`` a list)."""
     P = gl.ORDER
 
     def draw(*shape):
@@ -389,31 +430,64 @@ def random_inputs(rng, n: int, num_var: int, qd: int, wit_cols: int,
             sel = draw(n)
             sel[::3] = 0  # off the marker's rows
         lk = dict(lookup, beta=lbeta, gamma_pows=pows, sel=sel)
+    sig = (-gamma[1]) * pow(beta[1], P - 2, P) % P
+
+    def zero_den(row, col):
+        # w + β·σ + γ = 0 in both components
+        setup[row, col] = sig
+        wit[row, col] = (-(beta[0] * sig + gamma[0])) % P
+
+    def solve(row, cols, extra):
+        # cols[0] meets γ^0 = (1, 0), cols[1] γ^1: chosen so that
+        # β_l + Σ γ^t·row[cols[t]] + extra = 0 in both components
+        g = lk["gamma_pows"]
+        s0 = (lbeta[0] + extra[0]) % P
+        s1 = (lbeta[1] + extra[1]) % P
+        for t, c in enumerate(cols[2:], start=2):
+            s0 = (s0 + int(row[c]) * g[t][0]) % P
+            s1 = (s1 + int(row[c]) * g[t][1]) % P
+        row[cols[1]] = (-s1) * pow(g[1][1], P - 2, P) % P
+        row[cols[0]] = (-(s0 + int(row[cols[1]]) * g[1][0])) % P
+
+    def zero_lookup(row, rep):
+        tids = lk["tid_cols"]
+        tid = int(setup[row, tids[min(rep, len(tids) - 1)]]) if tids else 0
+        g, w = lk["gamma_pows"], lk["width"]
+        solve(wit[row], [lk["base_off"] + rep * lk["pw"] + t
+                         for t in range(lk["pw"])],
+              (tid * g[w][0] % P, tid * g[w][1] % P))
+
+    def zero_table(row):
+        solve(setup[row], [lk["table_off"] + t
+                           for t in range(lk["num_table"])], (0, 0))
+
     if zero_rows is not None:
         a, b, den = zero_rows
         if lk is not None:
-            g = lk["gamma_pows"]
-
-            def solve(row, cols, extra):
-                # cols[0] meets γ^0 = (1, 0), cols[1] γ^1: chosen so that
-                # β_l + Σ γ^t·row[cols[t]] + extra = 0 in both components
-                s0 = (lbeta[0] + extra[0]) % P
-                s1 = (lbeta[1] + extra[1]) % P
-                for t, c in enumerate(cols[2:], start=2):
-                    s0 = (s0 + int(row[c]) * g[t][0]) % P
-                    s1 = (s1 + int(row[c]) * g[t][1]) % P
-                row[cols[1]] = (-s1) * pow(g[1][1], P - 2, P) % P
-                row[cols[0]] = (-(s0 + int(row[cols[1]]) * g[1][0])) % P
-
-            tid = int(setup[a, lk["tid_cols"][0]]) if lk["tid_cols"] else 0
-            w = lk["width"]
-            solve(wit[a], [lk["base_off"] + t for t in range(lk["pw"])],
-                  (tid * g[w][0] % P, tid * g[w][1] % P))
-            solve(setup[b], [lk["table_off"] + t
-                             for t in range(lk["num_table"])], (0, 0))
-        sig = (-gamma[1]) * pow(beta[1], P - 2, P) % P
-        setup[den, 0] = sig
-        wit[den, 0] = (-(beta[0] * sig + gamma[0])) % P
+            zero_lookup(a, 0)
+            zero_table(b)
+        zero_den(den, 0)
+    chunks = -(-num_var // qd)
+    solved = set()
+    if lk is not None:
+        for rep in range(lk["num_subargs"]):
+            first = lk["base_off"] + rep * lk["pw"]
+            solved |= {first, first + 1}
+    for row, slots in (zero_slots or {}).items():
+        for k in sorted(slots):  # the denominators before the aggregates
+            if k < chunks:
+                free = [j for j in range(k * qd, min(k * qd + qd, num_var))
+                        if j not in solved]
+                if not free:
+                    raise ValueError("chunk %d has no column free of the "
+                                     "lookups' solved ones" % k)
+                zero_den(row, free[0])
+            elif lk is not None and k - chunks < lk["num_subargs"]:
+                zero_lookup(row, k - chunks)
+            elif lk is not None and k - chunks == lk["num_subargs"]:
+                zero_table(row)
+            else:
+                raise ValueError("no slot %d in a row" % k)
     return dict(wit=wit, setup=setup, x_vals=x, non_res=non_res, beta=beta,
                 gamma=gamma, qd=qd, lookup=lk)
 

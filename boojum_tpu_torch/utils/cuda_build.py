@@ -78,9 +78,8 @@ _SIGNATURES = {
         # witness, setup, x, non-residues, scalars, sel (None: no
         # selector), out, the int64 parameter array, stream
         "stage23_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P],
-        # out, block-product scratch (None: one block), n, chunks, row
-        # stride of out, stream
-        "stage23_scan": [_P, _P, _LL, _I, _LL, _P],
+        # out, status words, n, chunks, row stride of out, epoch, stream
+        "stage23_scan": [_P, _P, _LL, _I, _LL, _LL, _P],
     },
 }
 

@@ -33,16 +33,18 @@ plain per-layer chain at
 m = 2, 32 and 1000 with cap 1, at every tree of a prove (2^19, 2^16, 2^13,
 2^10, 2^7 and 2^4 leaves, cap 16) and at caps 1 and 4), and the two
 kernels of stages 2+3 (`stage23_rows` and `stage23_scan` of
-`csrc/stage23.cu`) against `stage23_plain` at 32, 256, 512 and 4096 rows
-and at the flagship's key, with a zero lookup aggregate, a zero table
-aggregate and a zero copy-permutation denominator among the rows (the scan
-also alone against the plain grand product and partials); every shape it
+`csrc/stage23.cu`) against `stage23_plain` at 1, 32, 256, 512, 1613 (no
+multiple of the scan's tile) and 4096 rows, at a row of 150 inverses, and
+at the flagship's key at 2^16 and 2^17 rows, with a zero lookup
+aggregate, a zero table aggregate, a zero copy-permutation denominator and
+a row whose every inverse is zero among the rows (the scan also alone
+against the plain grand product and partials); every shape it
 times is held against the plain version first. Then it drives these
 paths, each with the launch counts set to 0 just before it and read just
 after; the single-device proves of a path (each path counts its own) must
-launch `stage23_rows` once each and `stage23_scan` as often as their row
-counts ask (`stage23.scan_launches`), and no plain version (after the
-paths both kernels are held and timed at every key the proves launched):
+launch `stage23_rows` and `stage23_scan` once each (`stage23.scan_launches`:
+one launch a call), and no plain version (after the paths both kernels are
+held and timed at every key the proves launched):
 
 - the flagship: proves the 8 kB SHA-256 circuit (2^16 rows, LDE 8, cap 16,
   Poseidon transcript, Poseidon2 trees) through the port's entry points and
@@ -1482,9 +1484,10 @@ def stage23_inputs(rng, key, device_scalars):
     """Random inputs on the card for a row-kernel key, as `stage23.stage23`
     arguments (`stage23.random_inputs`: the table ids in the first constant
     columns), and the rows made zero: a zero aggregate of repetition 0 on
-    row n/3, of the table on row n/2 (with lookups), and a zero denominator
-    of copy column 0 on row 2n/3 (z is zero after it). The challenges are
-    device scalars (`ext2.PreparedExt`) or host pairs."""
+    row n/3, of the table on row n/2 (with lookups), a zero denominator of
+    copy column 0 on row 2n/3 (z is zero after it), and every inverse of
+    row 5n/6 zero (at n >= 6). The challenges are device scalars
+    (`ext2.PreparedExt`) or host pairs."""
     from boojum_tpu_torch.prover import stage23
     (n, nv, qd, ldw, lds, _, lookup, nsub, pw, base_off, width, ntid,
      table_off, ntab, mult_col, has_sel) = key[1:]
@@ -1493,11 +1496,16 @@ def stage23_inputs(rng, key, device_scalars):
         lk = dict(width=width, pw=pw, base_off=base_off, num_subargs=nsub,
                   tid_cols=tuple(range(nv, nv + ntid)), table_off=table_off,
                   num_table=ntab, mult_col=mult_col, sel=has_sel)
-    rows = dict(a=n // 3, b=n // 2, den=2 * n // 3)
-    inputs = stage23.random_inputs(rng, n, nv, qd, ldw, lds, lk,
-                                   (rows["a"], rows["b"], rows["den"]))
+    rows = dict(a=n // 3, b=n // 2, den=2 * n // 3, all=5 * n // 6)
+    if n < 6:
+        rows = {}
+    inputs = stage23.random_inputs(
+        rng, n, nv, qd, ldw, lds, lk,
+        (rows["a"], rows["b"], rows["den"]) if rows else None,
+        {rows["all"]: range(key[6] // 2)} if rows else None)
     if not lookup:
-        del rows["a"], rows["b"]
+        rows.pop("a", None)
+        rows.pop("b", None)
     return stage23.args_on(inputs, "cuda", device_scalars), rows
 
 
@@ -1584,15 +1592,20 @@ def check_stage23(rng, key, timed=False, device_scalars=True):
     err = require_equal(got, want, what)
     host = gl.to_u64(got)
     chunks = -(-key[2] // key[3])
-    zeros = host[rows["den"] + 1:, :2].any() or not host[rows["den"], :2].any()
+    zeros = False
+    if rows:
+        zeros = host[rows["den"] + 1:, :2].any() \
+            or not host[rows["den"], :2].any()
     if "a" in rows:
         zeros = zeros or host[rows["a"], 2 * chunks:2 * chunks + 2].any() \
             or host[rows["b"], -2:].any()
-    if zeros:
-        raise AssertionError("%s: the zero rows do not show" % what)
     launch = stage23.Launch(*args)
     launch.rows()
     rows_out = launch.out.clone()
+    if rows:  # the row kernel's every output of that row is 0
+        zeros = zeros or bool(rows_out[rows["all"]].any())
+    if zeros:
+        raise AssertionError("%s: the zero rows do not show" % what)
     launch.scan()
     want_scan, scan_plain_ms = plain_run(
         lambda: stage23_plain_scan(rows_out, chunks), timed)
@@ -1627,24 +1640,32 @@ STAGE23_FLAGSHIP_KEY = dict(n=1 << 16, nv=92, qd=4, mode="specialized",
 
 def check_stage23_kernels(rng):
     """Both stage-2+3 kernels bit-equal to their plain versions at made-up
-    keys around the scan's block (32 rows, one block of 256, 512) and the
-    recursion outer circuit's width (132 copy columns, no lookups), in both
-    lookup modes, with host and device challenges, and at the flagship's
-    key (timed)."""
+    keys: one row (one inverse, one lane a row); around the scan's tile (32
+    rows, 256, 512 = one tile, 1613 = three tiles and a ragged one); the
+    recursion outer circuit's width (132 copy columns, no lookups); a row of
+    150 inverses (the row kernel's 16-slot build); in both lookup modes,
+    with host and device challenges; and at the flagship's key at 2^17 and
+    (timed) 2^16 rows."""
     errs = []
-    for kw, dev in ((dict(n=32, nv=14, qd=4, mode="specialized", nsub=2,
+    for kw, dev in ((dict(n=1, nv=3, qd=4), False),
+                    (dict(n=32, nv=14, qd=4, mode="specialized", nsub=2,
                           width=3, ntid=2, ntab=4), False),
                     (dict(n=256, nv=20, qd=8, mode="general", nsub=4,
                           width=3, ntab=4), True),
                     (dict(n=512, nv=132, qd=8), True),
+                    (dict(n=1613, nv=5, qd=4, mode="general", nsub=1,
+                          width=3, ntab=4), True),
+                    (dict(n=1000, nv=300, qd=2), True),
                     (dict(n=1 << 12, nv=11, qd=4, mode="specialized",
-                          nsub=1, width=3, ntid=1, ntab=4), False)):
+                          nsub=1, width=3, ntid=1, ntab=4), False),
+                    (dict(STAGE23_FLAGSHIP_KEY, n=1 << 17), True)):
         errs.append(check_stage23(rng, stage23_key(**kw),
                                   device_scalars=dev)[0])
     err, timing = check_stage23(rng, stage23_key(**STAGE23_FLAGSHIP_KEY),
                                 timed=True)
-    log("stage23_rows / stage23_scan: bit-equal at n = 32, 256, 512, 4096 "
-        "and the flagship's key, the zero rows showing")
+    log("stage23_rows / stage23_scan: bit-equal at n = 1, 32, 256, 512, "
+        "1613, 4096, at 150 inverses a row and at the flagship's key (2^16, "
+        "2^17 rows), the zero rows showing")
     from boojum_tpu_torch.prover import stage23
     stage23.SHAPES.clear()  # made-up keys, not a prove's
     return max(errs + [err]), timing

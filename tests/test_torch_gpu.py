@@ -335,17 +335,21 @@ FLAGSHIP_STAGE23 = dict(n=1 << 16, num_var=92, qd=4, wit_cols=93,
 ])
 def test_stage23_equals_plain(cuda, layout, device_scalars):
     """Both kernels of stages 2+3 (`stage23_rows`, `stage23_scan`) against
-    `stage23_plain` on the same inputs, with a zero lookup aggregate, a zero
-    table aggregate and a zero copy-permutation denominator among the rows
+    `stage23_plain` on the same inputs, one launch each, with a zero lookup
+    aggregate, a zero table aggregate, a zero copy-permutation denominator
+    and a row whose every inverse is zero among the rows
     (`stage23.random_inputs`)."""
     from boojum_tpu_torch.prover import stage23
-    n = layout["n"]
+    n, lk = layout["n"], layout.get("lookup")
+    slots = -(-layout["num_var"] // layout["qd"]) + (
+        lk["num_subargs"] + 1 if lk else 0)
     inputs = stage23.random_inputs(np.random.default_rng(15), **layout,
-                                   zero_rows=(n // 3, n // 2, 2 * n // 3))
+                                   zero_rows=(n // 3, n // 2, 2 * n // 3),
+                                   zero_slots={5 * n // 6: range(slots)})
     args = stage23.args_on(inputs, cuda, device_scalars)
     before = stage23.LAUNCHES.copy()
     got = stage23.stage23(*args)
     launched = stage23.LAUNCHES - before
-    assert launched == {"stage23_rows": 1,
-                        "stage23_scan": stage23.scan_launches(n)}
+    assert launched == {"stage23_rows": 1, "stage23_scan": 1}
     assert torch.equal(got, stage23.stage23_plain(*args))
+    assert not got[5 * n // 6].any()  # z is 0 past row 2n/3, A and B too

@@ -41,6 +41,7 @@ from boojum_tpu_torch.prover.prover import materialize_witness_columns
 from boojum_tpu_torch.prover.serialization import proof_from_json
 from boojum_tpu_torch.verifier import verify
 from tests.test_recursion import make_outer_cs as ref_make_outer_cs
+from tests.torch_small_circuit import jitted_reference
 
 P = (1 << 64) - (1 << 32) + 1
 INNER_CFG = trd.INNER_CONFIG
@@ -140,7 +141,8 @@ def config2():
     the JAX host proof (`scripts/torch_reference_digest.py`'s functions,
     the ones of its digest file), carried into the port through JSON, and
     the JAX outer circuit over it."""
-    ref_inner, ref_art, ref_proof = trd.reference_inner()
+    with jitted_reference():
+        ref_inner, ref_art, ref_proof = trd.reference_inner()
     inner = circuits.build_inner_circuit(np.random.default_rng(trd.INNER_SEED))
     art = prepare_setup_and_vk(inner, ProofConfig(**INNER_CFG), device="cpu")
     proof = proof_from_json(ref_proof_to_json(ref_proof))

@@ -12,16 +12,22 @@ numpy seed; every comparison is exact.
 
 The emulation runs the kernels' indexing on flat Python-int arrays: the
 parameter array the wrapper packs (`stage23.row_params`, read in the C
-struct's order), the scalar array (`stage23._scalars`), the witness and
-setup rows at their row strides, the output's z and partial columns as the
-row kernel's scratch, every inverse by the kernels' addition chain
-(`stage23.inverse_chain`, zeros included), and the scan's three phases
-(block products, the one-block scan of them SCAN_BLOCK at a time with a
-carry, the per-block Hillis-Steele scan and the partials) at block sizes
-below, equal to and above n. It is the only check of the kernels' indexing
-that runs without a card; change a kernel, change its emulation first."""
+struct's order, the launcher's derived lane count and build), the scalar
+array (`stage23._scalars`), the witness and setup rows staged a warp at a
+time at their row strides, the lanes' slots, the warp shuffles as index
+maps within each row's lanes, the masked batch inversion (one
+`stage23.inverse_chain` a row, counted), the 16-byte stores into the
+output's z and partial columns as the row kernel's scratch; then the
+scan's tiles by ticket, each block's warp scans, the decoupled look-back
+over the status words (flags tagged with the call's epoch) in several
+orders of the tiles' steps, and the partials staged SCAN_COLS columns at a
+time. Tiles smaller than the kernel's (fewer threads a block) give several
+tiles at small n, and more than one look-back window. It is the only check of the kernels' indexing that runs
+without a card; change a kernel, change its emulation first."""
 
 import functools
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -197,139 +203,452 @@ def test_plain_equals_jax_reference(name):
 # ---------------------------------------------------------------------------
 
 
-def e2_mul(a, b):
+def _cu_constants():
+    """The integer constants of csrc/stage23.cu by name."""
+    text = open(os.path.join(os.path.dirname(stage23.__file__), "..", "csrc",
+                             "stage23.cu")).read()
+    consts = {}
+    for decl in re.findall(r"constexpr (?:int|uint64_t) ([^;]+);", text):
+        for part in decl.split(","):
+            name, value = (v.strip() for v in part.split("="))
+            consts[name] = eval(value.replace("/", "//"), {},
+                                dict(consts))
+    return consts
+
+
+CU = _cu_constants()
+ROW_WARPS, SCAN_COLS = CU["ROW_WARPS"], CU["SCAN_COLS"]
+assert CU["SCAN_STRIDE"] % 2 == 1  # a warp's 64-bit reads: 32 banks apiece
+
+
+def e2_mul(a, b):  # Karatsuba, as the kernels
     v0, v1 = a[0] * b[0] % P, a[1] * b[1] % P
-    return ((v0 + v1 * 7) % P, (a[0] * b[1] + a[1] * b[0]) % P)
+    s = (a[0] + a[1]) * (b[0] + b[1]) % P
+    return ((v0 + 7 * v1) % P, (s - v0 - v1) % P)
 
 
-def e2_inv(a):
-    norm = (a[0] * a[0] - a[1] * a[1] % P * 7) % P
-    inv = stage23.inverse_chain(norm)
-    return (a[0] * inv % P, (-(a[1] * inv)) % P)
+def e2_mul_conj(a, b):
+    v0, v1 = a[0] * b[0] % P, a[1] * b[1] % P
+    s = (a[0] + a[1]) * (b[0] - b[1]) % P
+    return ((v0 - 7 * v1) % P, (s - v0 + v1) % P)
 
 
-def emulate_rows(wit, setup, x, nonres, scal, sel, q):
+def e2_norm(a):
+    return (a[0] * a[0] - 7 * a[1] * a[1]) % P
+
+
+def _shfl(vals, lane, src_in_segment, width):
+    """Lane ``lane``'s read of a shuffle over segments of ``width`` lanes."""
+    base = lane & ~(width - 1)
+    return vals[base + src_in_segment]
+
+
+def shfl_up(vals, d, width):
+    return [_shfl(vals, l, (l % width) - d if l % width >= d else l % width,
+                  width) for l in range(32)]
+
+
+def shfl_down(vals, d, width):
+    return [_shfl(vals, l, (l % width) + d if l % width + d < width
+                  else l % width, width) for l in range(32)]
+
+
+def shfl_xor(vals, m, width):
+    return [_shfl(vals, l, (l % width) ^ m, width) for l in range(32)]
+
+
+def shfl_idx(vals, src, width):
+    return [_shfl(vals, l, src % width, width) for l in range(32)]
+
+
+def row_launch(q):
+    """The launcher's derived fields: chunks, inverses, staged columns,
+    the build's slots a lane, log2 of the lanes a row."""
+    n, nv, qd, ldw, lds, ldo, lookup, nsub, pw, base_off, width, ntid, \
+        table_off, ntab, mult_col = q[:15]
+    tid = q[15:]
+    chunks = -(-nv // qd)
+    inverses = chunks + (nsub + 1 if lookup else 0)
+    wcols = scols = nv
+    if lookup:
+        wcols = max(wcols, base_off + nsub * pw, mult_col + 1)
+        scols = max([scols, table_off + ntab] + [t + 1 for t in tid[:ntid]])
+    assert 2 * inverses == ldo and wcols <= ldw and scols <= lds
+    rounds = CU["ROUNDS_SMALL"] if inverses <= 32 * CU["ROUNDS_SMALL"] \
+        else CU["ROUNDS_LARGE"]
+    assert inverses <= 32 * rounds
+    log_lanes = 0
+    while (1 << log_lanes) * rounds < inverses:
+        log_lanes += 1
+    return chunks, inverses, wcols, scols, rounds, log_lanes
+
+
+def emulate_rows(wit, setup, x, nonres, scal, sel, q, stats):
     """The row kernel over flat arrays; ``q`` the parameter array, read as
-    the C launcher reads it. Returns the flat output (n · ldo)."""
+    the C launcher reads it. Returns the flat output (n · ldo); ``stats``
+    counts the Fermat chains (one a row; a warp's rows in one pass)."""
     n, nv, qd, ldw, lds, ldo, lookup, nsub, pw, base_off, width, ntid, \
         table_off, ntab, mult_col = q[:15]
     tid = q[15:]
     assert len(tid) == stage23.MAX_TID
-    out = [None] * (n * ldo)
+    chunks, inverses, wcols, scols, rounds, log_lanes = row_launch(q)
+    L, rows = 1 << log_lanes, 32 >> log_lanes
     beta, gamma = (scal[0], scal[1]), (scal[2], scal[3])
-    chunks = (nv + qd - 1) // qd
-    for i in range(n):
-        w, s, o = i * ldw, i * lds, i * ldo
+    lbeta, g = (scal[4], scal[5]) if lookup else None, scal[6:]
+    out = [None] * (n * ldo)
 
-        def affine(wj, sj):
-            return ((wj + sj * beta[0] + gamma[0]) % P,
-                    (sj * beta[1] + gamma[1]) % P)
+    # β·k_j a copy column, in the block's shared memory
+    bk = [(beta[0] * k % P, beta[1] * k % P) for k in nonres]
 
-        total = (1, 0)
-        for c in range(chunks):
-            num = den = (1, 0)
-            for j in range(c * qd, min((c + 1) * qd, nv)):
-                wj = wit[w + j]
-                num = e2_mul(num, affine(wj, x[i] * nonres[j] % P))
-                den = e2_mul(den, affine(wj, setup[s + j]))
-            r = e2_mul(num, e2_inv(den))
-            total = e2_mul(total, r)
-            if c + 1 < chunks:
-                out[o + 2 + 2 * c], out[o + 3 + 2 * c] = r
-        out[o], out[o + 1] = total
-        if not lookup:
-            continue
-        lbeta, gp = (scal[4], scal[5]), scal[6:]
+    def affine(wj, sj, b):
+        return ((wj + sj * b[0] + gamma[0]) % P, (sj * b[1] + gamma[1]) % P)
 
-        def add_scaled(acc, b, t):
-            return ((acc[0] + b * gp[2 * t]) % P,
-                    (acc[1] + b * gp[2 * t + 1]) % P)
-
-        oa = o + 2 * chunks
-        for rep in range(nsub):
-            agg = lbeta
-            for t in range(pw):
-                agg = add_scaled(agg, wit[w + base_off + rep * pw + t], t)
-            if ntid:
-                agg = add_scaled(agg, setup[s + tid[min(rep, ntid - 1)]],
-                                 width)
-            a = e2_inv(agg)
-            if sel is not None:
-                a = (a[0] * sel[i] % P, a[1] * sel[i] % P)
-            out[oa + 2 * rep], out[oa + 2 * rep + 1] = a
+    def slot_value(k, w, s, xi, selv):
+        if k < chunks:  # w + (β·k_j)·x + γ over w + β·σ_j + γ
+            start, end = k * qd, min(k * qd + qd, nv)
+            num = affine(w[start], xi, bk[start])
+            den = affine(w[start], s[start], beta)
+            for j in range(start + 1, end):
+                num = e2_mul(num, affine(w[j], xi, bk[j]))
+                den = e2_mul(den, affine(w[j], s[j], beta))
+            return e2_mul_conj(num, den), e2_norm(den)
+        rep = k - chunks
+        table = rep == nsub
+        src = [s[table_off + t] for t in range(ntab)] if table else \
+            [w[base_off + rep * pw + t] for t in range(pw)]
         agg = lbeta
-        for t in range(ntab):
-            agg = add_scaled(agg, setup[s + table_off + t], t)
-        b = e2_inv(agg)
-        m = wit[w + mult_col]
-        out[oa + 2 * nsub], out[oa + 2 * nsub + 1] = (b[0] * m % P,
-                                                       b[1] * m % P)
+        for t, b in enumerate(src):
+            agg = ((agg[0] + b * g[2 * t]) % P,
+                   (agg[1] + b * g[2 * t + 1]) % P)
+        if not table and ntid:
+            b = s[tid[min(rep, ntid - 1)]]
+            agg = ((agg[0] + b * g[2 * width]) % P,
+                   (agg[1] + b * g[2 * width + 1]) % P)
+        v = (agg[0], -agg[1] % P)
+        f = w[mult_col] if table else selv
+        if f is not None:
+            v = (v[0] * f % P, v[1] * f % P)
+        return v, e2_norm(agg)
+
+    for blk in range(-(-n // (ROW_WARPS * rows))):
+        for warp in range(ROW_WARPS):
+            i0 = (blk * ROW_WARPS + warp) * rows
+            if i0 >= n:
+                continue
+            # staging: lane c % 32 copies column c of each row below n
+            sw, ss = [None] * (rows * wcols), [None] * (rows * scols)
+            for buf, src, cols, ld in ((sw, wit, wcols, ldw),
+                                       (ss, setup, scols, lds)):
+                for r in range(rows):
+                    if i0 + r >= n:
+                        break
+                    for lane in range(32):
+                        for c in range(lane, cols, 32):
+                            buf[r * cols + c] = src[(i0 + r) * ld + c]
+            lanes = []
+            for lane in range(32):
+                li, rr = lane & (L - 1), lane >> log_lanes
+                i = i0 + rr
+                live = i < n
+                w, s = sw[rr * wcols:], ss[rr * scols:]
+                v, norm, before, prod = [], [], [], 1
+                for r in range(rounds):
+                    k = r * L + li
+                    vk, nk = (0, 0), 1
+                    if live and k < inverses:
+                        vk, nk = slot_value(k, w, s, x[i],
+                                            sel[i] if sel else None)
+                        if nk == 0:
+                            assert vk == (0, 0)
+                            nk = 1
+                    v.append(vk)
+                    norm.append(nk)
+                    before.append(prod)
+                    prod = prod * nk % P if r else nk
+                lanes.append(dict(li=li, i=i, live=live, v=v, norm=norm,
+                                  before=before, prod=prod))
+            pre = [ln["prod"] for ln in lanes]
+            suf = list(pre)
+            d = 1
+            while d < L:
+                a, b = shfl_up(pre, d, L), shfl_down(suf, d, L)
+                pre = [pre[l] * (a[l] if lanes[l]["li"] >= d else 1) % P
+                       for l in range(32)]
+                suf = [suf[l] * (b[l] if lanes[l]["li"] + d < L else 1) % P
+                       for l in range(32)]
+                d <<= 1
+            row_prod = shfl_idx(pre, L - 1, L)
+            lo, hi = shfl_up(pre, 1, L), shfl_down(suf, 1, L)
+            chains = {}  # row -> its one chain, run by all its lanes at once
+            for l, ln in enumerate(lanes):
+                if ln["i"] not in chains:
+                    chains[ln["i"]] = stage23.inverse_chain(row_prod[l])
+                    stats["chains"] += ln["live"]
+                assert row_prod[l] * chains[ln["i"]] % P == 1
+            stats["warp_passes"] += 1
+            totals = []
+            for l, ln in enumerate(lanes):
+                li = ln["li"]
+                inv = chains[ln["i"]] * (lo[l] if li else 1) % P
+                inv = inv * (hi[l] if li + 1 < L else 1) % P
+                total = (1, 0)
+                for r in reversed(range(rounds)):
+                    k = r * L + li
+                    inv_k = inv * ln["before"][r] % P if r else inv
+                    if r:
+                        inv = inv * ln["norm"][r] % P
+                    if ln["live"] and k < inverses:
+                        res = (ln["v"][r][0] * inv_k % P,
+                               ln["v"][r][1] * inv_k % P)
+                        if k < chunks:
+                            total = e2_mul(total, res)
+                        if k != chunks - 1:
+                            o = ln["i"] * ldo + 2 * (k + 1 if k < chunks
+                                                     else k)
+                            assert out[o] is None
+                            out[o], out[o + 1] = res
+                totals.append(total)
+            d = 1
+            while d < L:
+                c0 = shfl_xor([t[0] for t in totals], d, L)
+                c1 = shfl_xor([t[1] for t in totals], d, L)
+                totals = [e2_mul(totals[l], (c0[l], c1[l]))
+                          for l in range(32)]
+                d <<= 1
+            for l, ln in enumerate(lanes):
+                if ln["live"] and ln["li"] == 0:
+                    o = ln["i"] * ldo
+                    assert out[o] is None
+                    out[o], out[o + 1] = totals[l]
+    assert None not in out
     return out
 
 
-def _inclusive_scan(vals):
-    """The shared-memory Hillis-Steele scan of one block: at each step
-    every thread reads its partner's value of the step before (the barrier
-    between the read and the write)."""
-    sh = list(vals)
-    d = 1
-    while d < len(sh):
-        sh = [e2_mul(sh[t - d], sh[t]) if t >= d else e2_mul((1, 0), sh[t])
-              for t in range(len(sh))]
-        d <<= 1
-    return sh
+def rows_reference(case):
+    """What the row kernel writes, straight from the definitions with
+    Fermat inverses (0 -> 0): the total and the ratios of chunks 0..G-2 in
+    the z and partial columns, then A and B."""
+    n, nv, qd = case["n"], case["nv"], case["qd"]
+    wit, setup, lk = case["wit"], case["setup"], case["lookup"]
+    beta, gamma = case["beta"], case["gamma"]
+
+    def inv(a):
+        t = pow(e2_norm(a), P - 2, P)
+        return (a[0] * t % P, -a[1] * t % P)
+
+    def aff(w, s):
+        return ((w + s * beta[0] + gamma[0]) % P, (s * beta[1] + gamma[1]) % P)
+
+    rows = []
+    for i in range(n):
+        w, s = [int(v) for v in wit[i]], [int(v) for v in setup[i]]
+        xi = int(case["x_vals"][i])
+        ratios = []
+        for c in range(0, nv, qd):
+            num = den = (1, 0)
+            for j in range(c, min(c + qd, nv)):
+                num = e2_mul(num, aff(w[j], xi * case["non_res"][j] % P))
+                den = e2_mul(den, aff(w[j], s[j]))
+            ratios.append(e2_mul(num, inv(den)))
+        total = (1, 0)
+        for r in ratios:
+            total = e2_mul(total, r)
+        row = [total] + ratios[:-1]
+        if lk is not None:
+            g = lk["gamma_pows"]
+
+            def agg(vals, extra=None):
+                a = lk["beta"]
+                for t, b in enumerate(vals):
+                    a = ((a[0] + b * g[t][0]) % P, (a[1] + b * g[t][1]) % P)
+                if extra is not None:
+                    b, gw = extra, g[lk["width"]]
+                    a = ((a[0] + b * gw[0]) % P, (a[1] + b * gw[1]) % P)
+                return a
+
+            for rep in range(lk["num_subargs"]):
+                tids = lk["tid_cols"]
+                a = inv(agg([w[lk["base_off"] + rep * lk["pw"] + t]
+                             for t in range(lk["pw"])],
+                            s[tids[min(rep, len(tids) - 1)]] if tids
+                            else None))
+                if lk["sel"] is not None:
+                    sv = int(lk["sel"][i])
+                    a = (a[0] * sv % P, a[1] * sv % P)
+                row.append(a)
+            b = inv(agg([s[lk["table_off"] + t]
+                         for t in range(lk["num_table"])]))
+            m = w[lk["mult_col"]]
+            row.append((b[0] * m % P, b[1] * m % P))
+        rows.append([c for pair in row for c in pair])
+    return np.asarray(rows, np.uint64)
 
 
-def emulate_scan(out, n, chunks, ldo, block):
-    """stage23_scan over the flat output, in place; returns its launches."""
-    nb = (n + block - 1) // block
+def emulate_scan(out, n, chunks, ldo, threads, status, epoch, order):
+    """stage23_scan over the flat output, in place, with blocks of
+    ``threads`` threads, a row each (the kernel: SCAN_THREADS; fewer make
+    more tiles at small n). The tiles run as interleaved steps: ``order``
+    "ticket" runs each tile to its end in ticket order, "reverse" always
+    steps the highest runnable tile, "random" a random one (a seed).
+    ``status`` is the flat status words (the counter first). Returns the
+    launches, the aggregates the look-backs read and the look-back windows
+    past each tile's first."""
+    tiles = -(-n // threads)
+    head, words = CU["STATUS_HEAD"], CU["STATUS_WORDS"]
+    agg_flag, incl_flag = CU["FLAG_AGGREGATE"], CU["FLAG_INCLUSIVE"]
+    look = CU["LOOK_TILES"]
+    assert len(status) >= head + words * tiles
+    width = 2 * chunks
+    read = {"aggregates": 0, "windows": 0}
 
-    def total(i):
-        return (out[i * ldo], out[i * ldo + 1]) if i < n else (1, 0)
+    def stage(row0, wsize, c0):
+        # a warp's stage: columns [c0, c0 + SCAN_COLS) of its rows below n
+        cw = min(SCAN_COLS, width - c0)
+        buf = {}
+        for f in range(32 * SCAN_COLS):
+            r, c = divmod(f, SCAN_COLS)
+            if c < cw and r < wsize and row0 + r < n:
+                buf[r, c] = out[(row0 + r) * ldo + c0 + c]
+        return buf
 
-    prefix = None
-    if nb > 1:
-        prods = []
-        for b in range(nb):  # phase 1: a tree product of each block
-            sh = [total(b * block + t) for t in range(block)]
-            h = block // 2
-            while h:
-                sh = [e2_mul(sh[t], sh[t + h]) if t < h else sh[t]
-                      for t in range(block)]
-                h //= 2
-            prods.append(sh[0])
-        carry = (1, 0)  # phase 2: one block, `block` products at a time
-        for base in range(0, nb, block):
-            sh = _inclusive_scan([prods[base + t] if base + t < nb else (1, 0)
-                                  for t in range(block)])
-            excl = [e2_mul(carry, sh[t - 1] if t else (1, 0))
-                    for t in range(block)]
-            for t in range(block):
-                if base + t < nb:
-                    prods[base + t] = excl[t]
-            carry = e2_mul(carry, sh[block - 1])
-        prefix = prods
-    for b in range(nb):  # phase 3
-        sh = _inclusive_scan([total(b * block + t) for t in range(block)])
-        for t in range(block):
-            i = b * block + t
-            if i >= n:
+    def block():
+        ticket = status[0]
+        status[0] += 1
+        if ticket == tiles - 1:
+            status[0] = 0
+        tile = ticket
+        yield True
+        warps = [(tile * threads + w0, min(32, threads - w0))
+                 for w0 in range(0, threads, 32)]
+        first = [stage(row0, wsize, 0) for row0, wsize in warps]
+        # each warp's inclusive scan of its rows' totals (the first stage's
+        # columns 0, 1)
+        excl, warp_prefix = [], []
+        for (row0, wsize), buf in zip(warps, first):
+            incl = [(buf[l, 0], buf[l, 1]) if (l, 0) in buf else (1, 0)
+                    for l in range(wsize)]
+            d = 1
+            while d < wsize:
+                incl = [e2_mul(incl[l - d], incl[l]) if l >= d else incl[l]
+                        for l in range(wsize)]
+                d <<= 1
+            excl.append([(1, 0)] + incl[:-1])
+            warp_prefix.append(incl[-1])
+        agg = (1, 0)
+        for w in range(len(warp_prefix)):
+            warp_prefix[w], agg = agg, e2_mul(agg, warp_prefix[w])
+        # warp 0's look-back: lane 0 publishes the aggregate; the lanes
+        # read a window of the 32 * LOOK_TILES tiles below ``end``,
+        # LOOK_TILES each (waiting for each tile's flag of this epoch),
+        # multiply from the nearest inclusive prefix up, and move the
+        # window down until they meet one
+        st = head + tile * words
+        prefix = (1, 0)
+        if tile > 0:
+            status[st + 1], status[st + 2] = agg
+            status[st] = epoch << 2 | agg_flag
+            yield True
+            end = tile
+            while True:
+                mine = []  # each lane's nearest inclusive prefix, or -1
+                for lane in range(32):
+                    q0 = end - 32 * look + lane * look
+                    m = -1
+                    for k in range(look):
+                        if q0 + k < 0:
+                            continue
+                        while status[head + (q0 + k) * words] >> 2 != epoch:
+                            yield False  # waits
+                        if status[head + (q0 + k) * words] & 3 == incl_flag:
+                            m = k
+                    mine.append(m)
+                incl = any(m >= 0 for m in mine)
+                top = max(lane for lane in range(32) if mine[lane] >= 0) \
+                    if incl else 0
+                vals = []
+                for lane in range(32):
+                    q0 = end - 32 * look + lane * look
+                    v = (1, 0)
+                    for k in range(look):
+                        if lane < top or q0 + k < 0 or (
+                                lane == top and k < mine[lane]):
+                            continue
+                        at = 3 if lane == top and k == mine[lane] else 1
+                        sq = head + (q0 + k) * words
+                        v = e2_mul(v, (status[sq + at], status[sq + at + 1]))
+                        read["aggregates"] += at == 1
+                    vals.append(v)
+                d = 1
+                while d < 32:  # the warp's butterfly
+                    vals = [e2_mul(vals[lane], vals[lane ^ d])
+                            for lane in range(32)]
+                    d <<= 1
+                assert len(set(vals)) == 1
+                prefix = e2_mul(vals[0], prefix)
+                if incl:
+                    break
+                end -= 32 * look
+                read["windows"] += 1
+                yield True
+        status[st + 3], status[st + 4] = e2_mul(prefix, agg)
+        status[st] = epoch << 2 | incl_flag
+        yield True
+        # z, then the partials, SCAN_COLS u64 columns of a warp's rows at a
+        # time through its stage buffers
+        for w, ((row0, wsize), buf) in enumerate(zip(warps, first)):
+            part = [e2_mul(e2_mul(prefix, warp_prefix[w]), excl[w][l])
+                    for l in range(wsize)]
+            for c0 in range(0, width, SCAN_COLS):
+                if c0:
+                    buf = stage(row0, wsize, c0)
+                for l in range(wsize):
+                    for c in range(0, min(SCAN_COLS, width - c0), 2):
+                        if (l, c) not in buf:
+                            continue  # a row past n
+                        if c0 + c:
+                            part[l] = e2_mul(part[l], (buf[l, c],
+                                                       buf[l, c + 1]))
+                        buf[l, c], buf[l, c + 1] = part[l]
+                for (r, c), val in buf.items():
+                    out[(row0 + r) * ldo + c0 + c] = val
+
+    # every block takes its ticket (all resident), then the scheduler steps
+    # them: each step a tile's next status access; a waiting tile yields
+    # False and the next candidate is tried
+    rng = np.random.default_rng(epoch)
+    running, done = [], 0
+    while done < tiles:
+        if order != "ticket" or not running:
+            while len(running) + done < tiles:
+                gen = block()
+                next(gen)  # takes its ticket
+                running.append(gen)
+                if order == "ticket":
+                    break
+        picks = {"ticket": [0], "reverse": range(len(running) - 1, -1, -1),
+                 "random": rng.permutation(len(running))}[order]
+        for pick in picks:
+            try:
+                if next(running[pick]):
+                    break
+            except StopIteration:
+                running.pop(pick)
+                done += 1
                 break
-            z = sh[t - 1] if t else (1, 0)
-            if prefix is not None:
-                z = e2_mul(prefix[b], z)
-            o = i * ldo
-            out[o], out[o + 1] = z
-            part = z
-            for c in range(chunks - 1):
-                part = e2_mul(part, (out[o + 2 + 2 * c], out[o + 3 + 2 * c]))
-                out[o + 2 + 2 * c], out[o + 3 + 2 * c] = part
-    return 1 if nb == 1 else 3
+        else:
+            raise AssertionError("no tile can make progress")
+    assert status[0] == 0
+    return stage23.scan_launches(n), read["aggregates"], read["windows"]
 
 
-def emulate(case, block, pad=0):
+def emulate(case, threads=CU["SCAN_THREADS"], order="random", pad=0,
+            epochs=1):
     """Both kernels on the case, the witness as a view with ``pad`` more
-    columns a row (its row stride) -> (n, ldo) u64 and the scan's launches."""
+    columns a row (its row stride) -> (n, ldo) u64, the rows kernel's own
+    output, the scan's launches, aggregates read and windows past the
+    first, and the chain counts.
+    With ``epochs`` > 1 the scan runs again on the same status words, each
+    time a new epoch over the rows kernel's output."""
     n, nv, qd = case["n"], case["nv"], case["qd"]
     wide = np.concatenate([case["wit"], np.zeros((n, pad), np.uint64)], 1)
     wit_t = gl.from_u64(wide)[:, :case["wit"].shape[1]]
@@ -340,33 +659,105 @@ def emulate(case, block, pad=0):
     if lk is not None:
         scal += [lk.beta] + list(lk.gamma_pows)
     scal = [int(v) for v in gl.to_u64(stage23._scalars(scal, "cpu"))]
-    out = emulate_rows([int(v) for v in wide.reshape(-1)],
-                       [int(v) for v in case["setup"].reshape(-1)],
-                       [int(v) for v in case["x_vals"]], case["non_res"], scal,
-                       None if lk is None or lk.sel is None
-                       else [int(v) for v in case["lookup"]["sel"]], q)
+    stats = {"chains": 0, "warp_passes": 0}
+    rows_out = emulate_rows(
+        [int(v) for v in wide.reshape(-1)],
+        [int(v) for v in case["setup"].reshape(-1)],
+        [int(v) for v in case["x_vals"]], case["non_res"], scal,
+        None if lk is None or lk.sel is None
+        else [int(v) for v in case["lookup"]["sel"]], q, stats)
     ldo = q[5]
-    launches = emulate_scan(out, n, -(-nv // qd), ldo, block)
-    return np.asarray(out, np.uint64).reshape(n, ldo), launches
+    tiles = -(-n // threads)
+    status = [0] * (CU["STATUS_HEAD"] + CU["STATUS_WORDS"] * tiles)
+    for epoch in range(1, epochs + 1):
+        out = list(rows_out)
+        launches, aggregates, windows = emulate_scan(
+            out, n, -(-nv // qd), ldo, threads, status, epoch, order)
+    return (np.asarray(out, np.uint64).reshape(n, ldo),
+            np.asarray(rows_out, np.uint64).reshape(n, ldo), launches,
+            aggregates, windows, stats)
 
 
-@pytest.mark.parametrize("name,block", [
-    ("zero_aggregate", 4),        # 64 blocks: phase 2 in 16 chunks
-    ("zero_aggregate", 16),       # 16 blocks, one phase-2 chunk
-    ("zero_aggregate", 256),      # n equal to the block: one launch
-    ("general_with_sel", 32),
-    ("general_with_sel", 512),    # n below the block
-    ("no_lookup", 8),
-    ("padded_chunk", 64),
-    ("specialized_id_in_constant", 16),
+@pytest.mark.parametrize("name,threads,order", [
+    ("zero_aggregate", 4, "random"),      # 64 tiles of 4 rows
+    ("zero_aggregate", 1, "reverse"),     # the later tiles first; 256
+    #                                       tiles of a row: 2 windows
+    ("zero_aggregate", 16, "reverse"),    # 16 tiles
+    ("zero_aggregate", 512, "random"),    # n = 256 below the kernel's tile
+    ("general_with_sel", 64, "random"),   # 2 tiles of 64
+    ("general_with_sel", 48, "reverse"),  # 48, 48 and a ragged 32; a warp
+    ("no_lookup", 16, "ticket"),          # of 16 threads
+    ("padded_chunk", 24, "random"),       # 24 + 24 + a ragged 16
+    ("specialized_id_in_constant", 32, "reverse"),
 ])
-def test_kernel_emulation_matches_plain(name, block):
+def test_kernel_emulation_matches_plain(name, threads, order):
     case = make_case(name)
-    got, launches = emulate(case, block, pad=3)
+    got, rows_out, launches, aggregates, windows, stats = emulate(
+        case, threads, order=order, pad=3, epochs=2)
+    np.testing.assert_array_equal(rows_out, rows_reference(case))
     np.testing.assert_array_equal(got, port_plain(case))
-    assert launches == (1 if case["n"] <= block else 3)
-    if block == stage23.SCAN_BLOCK:
-        assert launches == stage23.scan_launches(case["n"])
+    assert launches == stage23.scan_launches(case["n"]) == 1
+    # one Fermat chain a row; a warp's rows run theirs in one pass
+    lanes = 1 << row_launch(stage23.row_params(
+        case["n"], case["nv"], case["qd"], 1 << 10, 1 << 10,
+        _lookup_inputs(case), 1 << 10, 1 << 10))[5]
+    assert stats["chains"] == case["n"]
+    assert stats["warp_passes"] == -(-case["n"] // (32 // lanes))
+    tiles = -(-case["n"] // threads)
+    if order == "reverse" and tiles > 2:  # the later tiles publish first
+        assert aggregates > 0  # a look-back went past an aggregate
+    if order == "reverse" and tiles > 32 * CU["LOOK_TILES"] + 1:
+        assert windows > 0  # and past a window
+
+
+# zero inverses (slots) by row: G chunks, then the repetitions, the table
+ZERO_SLOT_CASES = {
+    # 4 chunks, 2 repetitions, the table: slots 0..6
+    "zero_slots_specialized": ("specialized_id_in_constant", {
+        3: [4], 4: [6], 5: [4, 5, 6], 40: [0], 41: [3], 42: [1, 2],
+        50: list(range(7)), 51: [6]}),
+    # 3 chunks, no lookups: the last slot is a denominator
+    "zero_slots_no_lookup": ("no_lookup", {
+        40: [0], 41: [2], 42: [0, 1, 2], 43: [1]}),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def make_zero_slot_case(name):
+    base, slots = ZERO_SLOT_CASES[name]
+    n, nv, qd, mode, ntid, _ = CASES[base]
+    case = make_case(base)
+    lk = case["lookup"]
+    rng = np.random.default_rng(sorted(ZERO_SLOT_CASES).index(name) + 41)
+    lookup = None
+    if lk is not None:
+        lookup = {k: lk[k] for k in ("width", "pw", "base_off",
+                                     "num_subargs", "tid_cols", "table_off",
+                                     "num_table", "mult_col")}
+        lookup["sel"] = lk["sel"] is not None
+    inputs = stage23.random_inputs(rng, n, nv, qd, case["wit"].shape[1],
+                                   case["setup"].shape[1], lookup,
+                                   zero_slots=slots)
+    return dict(inputs, n=n, nv=nv)
+
+
+@pytest.mark.parametrize("name", sorted(ZERO_SLOT_CASES))
+def test_kernel_emulation_zero_slots(name):
+    # zero norms in the first slot, the last, every slot of a row, and
+    # several a row: each masked, the row's other inverses unharmed
+    case = make_zero_slot_case(name)
+    got, rows_out, _, _, _, stats = emulate(case, threads=16)
+    want_rows = rows_reference(case)
+    np.testing.assert_array_equal(rows_out, want_rows)
+    np.testing.assert_array_equal(got, port_plain(case))
+    chunks = -(-case["nv"] // case["qd"])
+    for row, slots in ZERO_SLOT_CASES[name][1].items():
+        for k in slots:  # the slot's pair (a ratio, A or B) is zero
+            pair = 0 if k == chunks - 1 else (k + 1 if k < chunks else k)
+            assert not rows_out[row, 2 * pair:2 * pair + 2].any()
+        if min(slots) < chunks:
+            assert not rows_out[row, :2].any()  # the row's total
+    assert stats["chains"] == case["n"]
 
 
 def test_plain_on_a_strided_witness():
@@ -416,6 +807,36 @@ def test_row_params_layout_and_checks():
         stage23.row_params(64, 14, 4, kw, ks, lk, lk.mult_col, ks)
     with pytest.raises(ValueError):  # a table column outside the setup
         stage23.row_params(64, 14, 4, kw, ks, lk, kw, ks - 1)
+
+
+def test_kernel_constants_match_wrapper():
+    # the wrapper's sizes are the kernels' (csrc/stage23.cu)
+    assert CU["MAX_TID"] == stage23.MAX_TID
+    assert CU["SCAN_TILE"] == stage23.SCAN_TILE
+    assert 32 * CU["ROUNDS_LARGE"] == stage23.MAX_INVERSES
+    assert (CU["STATUS_HEAD"], CU["STATUS_WORDS"]) == (
+        stage23.STATUS_HEAD, stage23.STATUS_WORDS)
+    assert CU["NUM_PARAMS"] == len(stage23.row_params(
+        4, 3, 4, 3, 3, None, 3, 3))
+    assert [stage23.scan_launches(n) for n in (1, 256, 257, 1 << 17)] == \
+        [1] * 4
+
+
+def test_scan_status_zeroed_once_and_shared():
+    # one zeroed buffer a stream, grown when a call needs more tiles;
+    # epochs only grow
+    key_stream = 12345
+    a = stage23.scan_status("cpu", key_stream, 100)
+    assert a.numel() == stage23.STATUS_HEAD + stage23.STATUS_WORDS
+    assert not a.any()
+    tile = stage23.SCAN_TILE
+    assert stage23.scan_status("cpu", key_stream, tile) is a
+    b = stage23.scan_status("cpu", key_stream, 3 * tile + 1)
+    assert b.numel() >= stage23.STATUS_HEAD + 4 * stage23.STATUS_WORDS
+    assert not b.any() and b is not a
+    assert stage23.scan_status("cpu", key_stream + 1, 100) is not b
+    e = stage23.new_epoch()
+    assert stage23.new_epoch() > e > 0
 
 
 def test_other_devices_raise():
