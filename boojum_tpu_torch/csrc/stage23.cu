@@ -85,9 +85,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ext2.cuh"
 #include "goldilocks.cuh"
 
 namespace {
+
+using gl::affine;
+using gl::E2;
+using gl::e2_mul;
+using gl::e2_scale;
+using gl::mul7;
+using gl::mul_add2;
 
 constexpr int MAX_TID = 64;       // stage23.py MAX_TID
 constexpr int ROW_THREADS = 128;
@@ -120,29 +128,12 @@ struct RowParams {
   int chunks, inverses, lanes, log_lanes, wcols, scols;
 };
 
-struct E2 {
-  uint64_t c0, c1;
-};
-
 __device__ __forceinline__ E2 e2_one() { return E2{1, 0}; }
 
 // Lazy arithmetic (goldilocks.cuh: any uint64_t in, some uint64_t congruent
 // out); the values compared with 0 and the values stored are canonicalized.
 __device__ __forceinline__ E2 e2_canon(E2 a) {
   return E2{gl::canonicalize(a.c0), gl::canonicalize(a.c1)};
-}
-
-// 7x for any x: a 67-bit product, one 96-bit reduction
-__device__ __forceinline__ uint64_t mul7(uint64_t x) {
-  return gl::reduce96((gl::u128)x * 7);
-}
-
-// (a0 + a1 u)(b0 + b1 u) with u^2 = 7, by Karatsuba
-__device__ __forceinline__ E2 e2_mul(E2 a, E2 b) {
-  const uint64_t v0 = gl::mul_lazy(a.c0, b.c0), v1 = gl::mul_lazy(a.c1, b.c1);
-  const uint64_t s =
-      gl::mul_lazy(gl::add_lazy(a.c0, a.c1), gl::add_lazy(b.c0, b.c1));
-  return E2{gl::add_lazy(v0, mul7(v1)), gl::sub_lazy(gl::sub_lazy(s, v0), v1)};
 }
 
 // a * conj(b) = (a0 + a1 u)(b0 - b1 u), by Karatsuba
@@ -155,10 +146,6 @@ __device__ __forceinline__ E2 e2_mul_conj(E2 a, E2 b) {
 
 __device__ __forceinline__ E2 e2_conj(E2 a) {
   return E2{a.c0, gl::sub_lazy(0, a.c1)};
-}
-
-__device__ __forceinline__ E2 e2_scale(E2 a, uint64_t x) {
-  return E2{gl::mul_lazy(a.c0, x), gl::mul_lazy(a.c1, x)};
 }
 
 // a * conj(a) = a0^2 - 7 a1^2: zero (mod p) only for a = 0
@@ -183,18 +170,6 @@ __device__ uint64_t inverse(uint64_t x) {
   const uint64_t t31 = gl::mul_lazy(sqn(t30, 1), x);
   const uint64_t t63 = gl::mul_lazy(sqn(t31, 32), t31);
   return gl::canonicalize(gl::mul_lazy(sqn(t63, 1), x));
-}
-
-// x * y + u + v, one reduction: x * y <= (2^64 - 1)^2 = 2^128 - 2^65 + 1, so
-// the 128-bit sum does not wrap for any uint64_t x, y, u, v
-__device__ __forceinline__ uint64_t mul_add2(uint64_t x, uint64_t y,
-                                             uint64_t u, uint64_t v) {
-  return gl::reduce128_lazy((gl::u128)x * y + u + v);
-}
-
-// w + b*s + g for the ext scalars b, g
-__device__ __forceinline__ E2 affine(uint64_t w, uint64_t s, E2 b, E2 g) {
-  return E2{mul_add2(s, b.c0, w, g.c0), mul_add2(s, b.c1, g.c1, 0)};
 }
 
 // acc + b * g for a base b and the ext scalar at g[0], g[1]

@@ -9,7 +9,10 @@ permutation grand product, lookup A/B polys: `stage23.stage23`, on a GPU
 two hand kernels in place of the reference's one program `_stage23_jit`,
 its ops one by one on the sharded path, as the reference's mesh path runs
 them); the quotient over the flat
-(qd·n) domain; its coset iNTT; evaluations at z, z·ω and 0; DEEP; FRI; and
+(qd·n) domain (`quotient.quotient_sweep`: on a GPU one hand kernel that
+runs every gate from the circuit's recorded tape, in place of the
+reference's one program `_quotient_full_fn`, on the sharded path over
+each rank's blocks); its coset iNTT; evaluations at z, z·ω and 0; DEEP; FRI; and
 the query openings. NTTs run through the `ntt_stage` kernel and every Merkle
 tree through the leaf and node entries of the tree hasher's kernel on the
 GPU: `poseidon2` (K2), `poseidon` (`poseidon_leaf_hashes` /
@@ -61,7 +64,6 @@ import time
 import numpy as np
 import torch
 
-from ..cs.gates.base import TorchOps, TraceView
 from ..cs.setup import non_residues_for_copy_permutation
 from ..field import extension as ext2
 from ..field import goldilocks as gl
@@ -70,14 +72,13 @@ from ..transcript import make_transcript
 from ..utils import npgl
 from . import device as dops
 from . import pow as pow_mod
-from . import stage23
+from . import quotient, stage23
 from .device_merkle import (TREE_HASHERS, FetchCollector, do_fri_device,
                             finish_fri)
-from .device_transcript import (DeviceTranscript, ext_pow_table_dev,
-                                prepare_ext)
+from .device_transcript import DeviceTranscript, ext_pow_list, prepare_ext
 from .device_witness import DeviceWitnessProgram
 from .fri import _inverse_roots_bitreversed, compute_fri_schedule
-from .jit_ops import EV, affine
+from .jit_ops import EV
 from .oracles import DeviceOracle, eval_monomial_sets_at
 from .proof import Proof, ProofConfig, SingleRoundQueries
 from .prover import (ProvingArtifacts, _BoolsBuffer, _s2, _u64_from_lsb,
@@ -113,16 +114,6 @@ def _mesh_device(device, mesh) -> torch.device:
         raise ValueError("device %r does not match the mesh's %s"
                          % (device, mesh.device))
     return mesh.device
-
-
-def _selector_product(path, const_cols, size, dev):
-    """The selector of a gate at ``path`` in the selector tree: the product
-    over its constant columns of c (bit 1) or 1 - c (bit 0)."""
-    prod = gl.full((size,), 1, dev)
-    for k, bit in enumerate(path):
-        col = const_cols[k]
-        prod = gl.mul(prod, col if bit else gl.sub(gl.full((), 1, dev), col))
-    return prod
 
 
 @torch.inference_mode()
@@ -177,23 +168,27 @@ class DeviceProver:
         """Device tables that stay the same from prove to prove: X over the
         quotient and FRI domains, the unnormalized L1, 1/Z_H per quotient
         coset and the FRI inverse roots (the domain's), the copy
-        permutation's non-residues, and in the general-purpose lookup modes
-        the marker's selector over the base and the flat quotient domain
-        (the setup's)."""
+        permutation's non-residues, the quotient's layout and its gate tape
+        (`quotient.QuotientInputs`, recorded once, and the tape on the
+        device), and in the general-purpose lookup modes the marker's
+        selector over the base and the flat quotient domain (the
+        setup's)."""
         if self._tables is None:
             n, qd, fri_lde, dev = self.n, self.qd, self.fri_lde, self.device
             # a sharded prover's rows of each coset (all of them on one
             # device); the FRI roots stay whole
             own = slice(None) if self.mesh is None else self.mesh.blocks(n)
             rows = n if self.mesh is None else n // self.mesh.size
-            vi = dops.vanishing_inverse_per_coset(n, qd)
+            layout = quotient.QuotientInputs.of_circuit(
+                self.cs, self.artifacts.setup_base)
             self._tables = {
                 "x_lde": gl.from_u64(dops.x_poly_lde_host(n, qd)[:, own],
                                      dev).reshape(-1),
                 "x_fri": gl.from_u64(dops.x_poly_lde_host(n, fri_lde)[:, own],
                                      dev).reshape(-1),
                 "l1": dops.unnormalized_l1_lde(n, qd, dev, own).reshape(-1),
-                "vanish_inv": gl.from_u64(np.repeat(vi, rows), dev),
+                "vanish_inv": gl.from_u64(
+                    dops.vanishing_inverse_per_coset(n, qd), dev),
                 "roots": gl.from_u64(_inverse_roots_bitreversed(fri_lde * n), dev),
                 # ω^i on the base domain
                 "x_vals": gl.from_u64(npgl.powers(gl.domain_generator(
@@ -203,6 +198,8 @@ class DeviceProver:
                     non_residues_for_copy_permutation(
                         n, self.artifacts.setup_base.copy_permutation_polys
                         .shape[0]), dev),
+                "quotient": layout,
+                "quotient_program": quotient.upload_tape(layout.tape, dev),
             }
             lp = self.cs.lookup_parameters
             if lp.lookup_is_allowed and not lp.is_specialized:
@@ -210,9 +207,9 @@ class DeviceProver:
                 orc = self.artifacts.setup_oracle
                 first = sb.copy_permutation_polys.shape[0]
                 path = sb.selector_paths[0]  # the marker is evaluator 0
-                self._tables["sel_base"] = _selector_product(
+                self._tables["sel_base"] = quotient.selector_product(
                     path, orc.lagrange.T[first:], rows, dev)
-                self._tables["sel_flat"] = _selector_product(
+                self._tables["sel_flat"] = quotient.selector_product(
                     path, [orc.flat(first + k, qd) for k in range(len(path))],
                     qd * rows, dev)
         return self._tables
@@ -251,7 +248,6 @@ class DeviceProver:
         mesh = self.mesh
         _check_supported(hasher, mesh)
         dev = self.device
-        ops = TorchOps(dev)
         sb = self.artifacts.setup_base
         setup_oracle = self.artifacts.setup_oracle
         vk = self.artifacts.vk
@@ -324,16 +320,6 @@ class DeviceProver:
                 return prepare_ext(transcript.get_ext_challenge())
             return _s2(tuple(transcript.get_multiple_challenges(2)))
 
-        def pow_table(c, count):
-            """[1, c, .., c^(count-1)]: the prepared rows of a device table,
-            or host pairs."""
-            if use_dev_ts:
-                return ext2.prepare(ext_pow_table_dev(c, count))
-            pows = [(1, 0)]
-            for _ in range(count - 1):
-                pows.append(ext2.s2_mul(pows[-1], c))
-            return pows
-
         # -- stage 0: bind VK cap and public inputs ---------------------------
         transcript.witness_merkle_tree_cap(vk.setup_merkle_tree_cap)
         num_var_polys = sb.copy_permutation_polys.shape[0]
@@ -393,7 +379,8 @@ class DeviceProver:
                 base_off = 0
             tid_cols = sb.table_ids_column_idxes
             lookup = stage23.LookupInputs(
-                beta=lookup_beta, gamma_pows=pow_table(lookup_gamma, width + 1),
+                beta=lookup_beta,
+                gamma_pows=ext_pow_list(lookup_gamma, width + 1),
                 width=width, pw=pw, base_off=base_off,
                 num_subargs=num_lookup_subargs,
                 tid_cols=tuple(num_sigma_polys + t for t in tid_cols)
@@ -402,9 +389,6 @@ class DeviceProver:
                 num_table=num_table_polys,
                 mult_col=num_var_polys + num_wit_polys,
                 sel=None if lp.is_specialized else tables["sel_base"])
-
-            def aggregate(cols, tid_col, size):
-                return stage23.aggregate(lookup, cols, tid_col, size, dev)
 
         if mesh is None:
             stage2_lagrange = stage23.stage23(
@@ -419,126 +403,36 @@ class DeviceProver:
 
         # -- stage 4: stage-2 oracle -------------------------------------------
         stage2_oracle = oracle(stage2_lagrange, used_lde, tree_lde=fri_lde)
-        num_stage2 = stage2_lagrange.shape[1]
         del stage2_lagrange
         absorb_cap(stage2_oracle)
         stage("stage-2 oracle")
 
-        # -- stage 5: alpha powers ---------------------------------------------
+        # -- stage 5: alpha (the sweep makes its powers) ------------------------
         alpha = ext_challenge()
-        total_lookup_terms = num_lookup_subargs + num_mult_polys
-        total_specialized_terms = sum(
-            cs.evaluators_specialized[cs.specialized_idx_by_name[name]]
-            .num_quotient_terms * reps
-            for (name, _, reps) in cs.gate_spec_layout)
-        total_general_terms = sum(
-            ev.num_quotient_terms * ev.num_repetitions(geometry)
-            for ev in cs.evaluators_general)
-        total_terms = (total_lookup_terms + total_specialized_terms
-                       + total_general_terms + 1 + 1 + num_intermediates)
-        alpha_pows = pow_table(alpha, total_terms)
-        lookup_alphas = iter(alpha_pows[:total_lookup_terms])
-        spec_alphas = iter(alpha_pows[total_lookup_terms:
-                                      total_lookup_terms + total_specialized_terms])
-        general_alphas = iter(alpha_pows[total_lookup_terms + total_specialized_terms:
-                                         total_lookup_terms + total_specialized_terms
-                                         + total_general_terms])
-        rem_alphas = iter(alpha_pows[total_lookup_terms + total_specialized_terms
-                                     + total_general_terms:])
+        layout = tables["quotient"]
 
-        # -- stage 6: quotient accumulation over the flat (qd·n) domain -------
-        size = qd * rows
-        acc = EV.const((0, 0), (size,), dev)
-        x_lde = tables["x_lde"]
-        var_flat = [witness_oracle.flat(i, qd) for i in range(num_var_polys)]
-        wit_flat = [witness_oracle.flat(num_var_polys + i, qd)
-                    for i in range(num_wit_polys)]
-        mult_flat = [witness_oracle.flat(num_var_polys + num_wit_polys + i, qd)
-                     for i in range(num_mult_polys)]
-        sigma_flat = [setup_oracle.flat(i, qd) for i in range(num_sigma_polys)]
-        const_flat = [setup_oracle.flat(num_sigma_polys + i, qd)
-                      for i in range(num_const_polys)]
-        table_flat = [setup_oracle.flat(num_sigma_polys + num_const_polys + i, qd)
-                      for i in range(num_table_polys)]
-        stage2_flat = [stage2_oracle.flat(i, qd) for i in range(num_stage2)]
-
-        def ext_flat(i):
-            return EV(stage2_flat[i], stage2_flat[i + 1])
-
-        a_off = 2 * (1 + num_intermediates)
-        # 6a. lookup terms: A·agg - 1 (specialized) or A·agg - sel (general)
-        # per subargument, B·agg_t - mult
-        if lp.lookup_is_allowed:
-            one = 1 if lp.is_specialized else tables["sel_flat"]
-            for rep in range(num_lookup_subargs):
-                cols = [var_flat[base_off + rep * pw + i] for i in range(pw)]
-                tid = const_flat[tid_cols[min(rep, len(tid_cols) - 1)]] \
-                    if lp.id_in_constant else None
-                term = ext_flat(a_off + 2 * rep) * aggregate(cols, tid, size)
-                term = EV(gl.sub(term.c0, one), term.c1)
-                acc = acc + term.scale(next(lookup_alphas))
-            b_off = a_off + 2 * num_lookup_subargs
-            term = ext_flat(b_off) * aggregate(table_flat, None, size)
-            term = EV(gl.sub(term.c0, mult_flat[0]), term.c1)
-            acc = acc + term.scale(next(lookup_alphas))
-
-        # 6b. specialized gates: active on every row, no selector
-        lookup_spec_cols = cs.specialized_copy_data.shape[0] \
-            if cs.specialized_copy_data is not None else 0
-        for (sname, sstart, sreps) in cs.gate_spec_layout:
-            sev = cs.evaluators_specialized[cs.specialized_idx_by_name[sname]]
-            base = geometry.num_columns_under_copy_permutation + \
-                lookup_spec_cols + sstart
-            for rep in range(sreps):
-                cols = [var_flat[base + rep * sev.num_variables + i]
-                        for i in range(sev.num_variables)]
-                for term in sev.evaluate(TraceView(cols, [], []), ops):
-                    term = term.expand(size)
-                    acc = acc + EV(*ext2.base_scale(term, next(spec_alphas)))
-
-        # 6c. general-purpose gate terms under selector path products
-        for ev_idx, ev in enumerate(cs.evaluators_general):
-            if ev.num_quotient_terms == 0:
-                continue
-            path = sb.selector_paths[ev_idx]
-            sel = _selector_product(path, const_flat, size, dev)
-            src = TraceView(var_flat, wit_flat, const_flat[len(path):])
-            terms = ev.evaluate_repetitions(src, ops, geometry)
-            assert len(terms) == ev.num_quotient_terms * ev.num_repetitions(geometry)
-            for term in terms:
-                contrib = gl.mul(term.expand(size), sel)
-                acc = acc + EV(*ext2.base_scale(contrib, next(general_alphas)))
-
-        # 6d. copy-permutation terms
-        z_flat = ext_flat(0)
-        zm1 = EV(gl.sub(z_flat.c0, 1), z_flat.c1)
-        acc = acc + zm1.mul_base(tables["l1"]).scale(next(rem_alphas))
-
-        # z(x·ω): monomials c_k·ω^k, then its qd-coset LDE
+        # -- stage 6: quotient over the flat (qd·n) domain, divided by the
+        # vanishing poly: z(x·ω) from its monomials c_k·ω^k by a qd-coset
+        # LDE, then one kernel launch (the sharded prove: over the rank's
+        # coset-major blocks)
         z_shift_mono = gl.mul(stage2_oracle.monomials[:, 0:2], x_vals[:, None])
         zs = (dops.monomials_to_lde(z_shift_mono, qd) if mesh is None
               else sharded_monomials_to_lde(mesh, z_shift_mono, qd))  # (qd, n, 2)
-        z_shifted = EV(zs[:, :, 0].reshape(-1), zs[:, :, 1].reshape(-1))
+        challenges = quotient.Challenges(
+            beta, gamma, lookup.beta if lookup else None,
+            lookup.gamma_pows if lookup else None, alpha)
+        q2 = quotient.quotient_sweep(
+            layout, witness_oracle.flat_t, setup_oracle.flat_t,
+            stage2_oracle.flat_t, tables["x_lde"], tables["l1"],
+            zs.reshape(qd * rows, 2), tables["vanish_inv"], non_res,
+            challenges, tables.get("sel_flat"),
+            program=tables["quotient_program"])
         del zs
-
-        lhs_list = [ext_flat(2 + 2 * i) for i in range(num_intermediates)]
-        lhs_list.append(z_shifted)
-        rhs_list = [z_flat] + [ext_flat(2 + 2 * i) for i in range(num_intermediates)]
-        for rel_idx, (lhs, rhs) in enumerate(zip(lhs_list, rhs_list)):
-            a = next(rem_alphas)
-            for j in range(rel_idx * qd, min(rel_idx * qd + qd, num_var_polys)):
-                w = var_flat[j]
-                lhs = lhs * EV(*affine(w, sigma_flat[j], beta, gamma))
-                rhs = rhs * EV(*affine(w, gl.mul(x_lde, non_res.ints[j]), beta, gamma))
-            acc = acc + (lhs - rhs).scale(a)
-        del lhs_list, rhs_list, z_shifted
         stage("quotient sweep")
 
-        # -- stage 7: divide by the vanishing poly, coset iNTT, chunk ---------
-        acc = acc.mul_base(tables["vanish_inv"])
+        # -- stage 7: coset iNTT, chunk ----------------------------------------
         if mesh is None:
             g = gl.MULTIPLICATIVE_GENERATOR
-            q2 = torch.stack([acc.c0, acc.c1], dim=1)  # (qd·n, 2)
             if (qd * n).bit_length() - 1 >= 14:
                 q_mono = ntt.coset_intt_fourstep_cols(q2, g)
             else:
@@ -550,8 +444,9 @@ class DeviceProver:
                 .reshape(n, 2 * qd).contiguous()
             del q_mono
         else:
-            quotient_monomials = sharded_quotient_monomials(mesh, acc.a, qd)
-        del acc
+            quotient_monomials = sharded_quotient_monomials(
+                mesh, (q2[:, 0], q2[:, 1]), qd)
+            del q2
         # the quotient's top coefficient is zero for a satisfied circuit; it
         # is checked on the host at the next fetch (the evaluations', or the
         # device transcript's handoff), not with a wait of its own. Under a
@@ -622,7 +517,7 @@ class DeviceProver:
                             num_sigma_polys + num_const_polys),
                  base_range(s_z, 0, num_sigma_polys),
                  ext_range(st2_z, 0, 1 + num_intermediates)]
-        b_off = a_off + 2 * num_lookup_subargs
+        a_off, b_off = layout.a_off, layout.b_off
         if lp.lookup_is_allowed:
             parts += [base_range(w_z, num_var_polys + num_wit_polys,
                                  num_var_polys + num_wit_polys + num_mult_polys),
@@ -663,7 +558,7 @@ class DeviceProver:
             pub_tuples.setdefault(pow(omega, row, P), []).append((col, value))
         total_ch = len(values_at_z) + 1 + len(values_at_0) + \
             sum(len(s) for s in pub_tuples.values())
-        ch_iter = iter(pow_table(deep, total_ch))
+        ch_iter = iter(ext_pow_list(deep, total_ch))
 
         fsize = fri_lde * rows
         x_fri = tables["x_fri"]

@@ -203,6 +203,18 @@ def ext_pow_table_dev(ch, count: int) -> torch.Tensor:
     return torch.stack(ext2.powers(ch, count, ch.device), dim=1)
 
 
+def ext_pow_list(ch, count: int) -> list:
+    """[1, c, .., c^(count-1)] of an ext challenge: for a device one
+    ((2,) tensor or `PreparedExt`) the prepared rows of one device table
+    (`ext_pow_table_dev`), for a host pair host pairs."""
+    if isinstance(ch, (ext2.PreparedExt, torch.Tensor)):
+        return ext2.prepare(ext_pow_table_dev(ch, count))
+    pows = [(1, 0)]
+    for _ in range(count - 1):
+        pows.append(ext2.s2_mul(pows[-1], ch))
+    return pows
+
+
 def sq_chain_dev(ch: torch.Tensor, k: int) -> torch.Tensor:
     """(2,) ext challenge -> (k, 2) squaring chain [c, c^2, c^4, ...] (the
     per-FRI-round fold-challenge table), written row by row into one

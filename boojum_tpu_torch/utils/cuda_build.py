@@ -20,7 +20,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 KERNELS = ("ntt_stage", "poseidon2", "ntt_small", "sha256_witness",
-           "poseidon", "blake2s", "keccak", "stage23")
+           "poseidon", "blake2s", "keccak", "stage23", "quotient")
 
 _LIBS: dict = {}  # kernel handles: name -> ctypes.CDLL
 
@@ -80,6 +80,13 @@ _SIGNATURES = {
         "stage23_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P],
         # out, status words, n, chunks, row stride of out, epoch, stream
         "stage23_scan": [_P, _P, _LL, _I, _LL, _LL, _P],
+    },
+    "quotient": {
+        # witness, setup, stage-2 (each a transposed flat LDE), x, L1,
+        # z(ωx), sel (None: no selector), 1/Z_H a coset, non-residues,
+        # scalars, tape, constant pool, out, the int64 parameter array,
+        # stream
+        "quotient_sweep": [_P] * 15,
     },
 }
 

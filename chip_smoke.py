@@ -38,13 +38,26 @@ multiple of the scan's tile) and 4096 rows, at a row of 150 inverses, and
 at the flagship's key at 2^16 and 2^17 rows, with a zero lookup
 aggregate, a zero table aggregate, a zero copy-permutation denominator and
 a row whose every inverse is zero among the rows (the scan also alone
-against the plain grand product and partials); every shape it
+against the plain grand product and partials), and the quotient sweep
+(`quotient_sweep` of `csrc/quotient.cu`, the gate terms from the
+circuit's recorded tape) against `quotient_plain` at made-up keys
+(`quotient.made_up_case`: no lookup, the specialized lookups with a table
+id a repetition and shared, the general-purpose ones with the selector,
+general gates under selector paths, the flattened Poseidon and Poseidon2
+gates, each at 8 and 4096 rows, a point of zeros and one of p - 1 among
+the points; the Poseidon gates at qd 16, 2^19 points, the flagship's
+widths timed); every shape it
 times is held against the plain version first. Then it drives these
 paths, each with the launch counts set to 0 just before it and read just
 after; the single-device proves of a path (each path counts its own) must
-launch `stage23_rows` and `stage23_scan` once each (`stage23.scan_launches`:
-one launch a call), and no plain version (after the paths both kernels are
-held and timed at every key the proves launched):
+launch `stage23_rows`, `stage23_scan` (`stage23.scan_launches`: one launch
+a call) and `quotient_sweep` once each, a sharded prove `quotient_sweep`
+once, and no path a plain version (after the
+paths the three kernels are held and timed at every key the proves
+launched). Each configuration's op-counted prove gives the "quotient
+sweep" stage's torch ops and wall, all printed on one line at the end:
+at most 1,000 ops for the flagship with the device transcript and 2,000
+for the recursion outer prove (88,174 and 520,406 op by op):
 
 - the flagship: proves the 8 kB SHA-256 circuit (2^16 rows, LDE 8, cap 16,
   Poseidon transcript, Poseidon2 trees) through the port's entry points and
@@ -84,8 +97,10 @@ held and timed at every key the proves launched):
   each held to `flagship_proof_digest.json`, with its synchronizing calls
   counted (a warm prove at most 12: the sharded prove takes the host
   transcript and the host witness, as the reference's mesh path does) and
-  its collectives by kind printed; it must launch `ntt_stage` and the
-  Poseidon2 leaf and node entries, and no plain version; then one sharded
+  its collectives by kind printed, and one prove with its torch ops
+  counted by stage; it must launch `ntt_stage`, the Poseidon2 leaf and
+  node entries and `quotient_sweep` (once a prove, over the rank's blocks),
+  and no plain version; then one sharded
   classic-Poseidon tree of 2^19 leaves (`build_sharded_tree`, hasher
   "poseidon", one `poseidon_node_layer` launch a layer) whose layers must
   equal the single-device tree's;
@@ -105,9 +120,10 @@ held and timed at every key the proves launched):
   Blake2s trees (K8), LDE 8, cap 16, security 100, no PoW: setup, one cold
   and one warm prove, each proof's digest equal to
   `boojum_tpu_torch/data/flagship_blake2s_proof_digest.json`, the stage
-  split of a synced prove, and at most 12 synchronizing calls in a warm
-  prove; then one Keccak-256 prove (K9) against
-  `flagship_keccak256_proof_digest.json`. Both must launch their tree
+  split and torch ops of an op-counted prove, and at most 12 synchronizing
+  calls in a warm prove; then one Keccak-256 prove (K9) against
+  `flagship_keccak256_proof_digest.json` and one op-counted. Both must
+  launch their tree
   kernels, `ntt_stage` and `sha256_witness`, and no plain version, and
   no prove may launch `*_node_layers` more than 16 times;
 - the Keccak-256 circuit (BASELINE config 3): the 1 kB Keccak-256 gadget
@@ -128,7 +144,8 @@ held and timed at every key the proves launched):
   that verifies it (4096 rows, 132 copy columns, degree 8, flattened
   Poseidon and Poseidon2 gates), both made on the card through the host
   witness path, as in the reference, and held to the digests in
-  `boojum_tpu_torch/data/recursion_outer_proof_digest.json`: the outer
+  `boojum_tpu_torch/data/recursion_outer_proof_digest.json` (the inner
+  prove once more with its torch ops counted by stage): the outer
   circuit's synthesis and `check_if_satisfied`, its setup, a cold prove
   with its torch ops counted by stage and a warm prove timed
   (`scripts/torch_profile_flagship.py --config recursion_outer`
@@ -1689,25 +1706,160 @@ def check_stage23_prove_shapes(rng):
     return max(errs), timings
 
 
-def check_stage23_launches(counts, what, proves):
+def check_stage_launches(counts, what, proves, sharded=0):
     """The ``proves`` single-device proves of a path (each path knows its
-    own) launched stage23_rows once each and stage23_scan as often as
-    their row counts ask (`stage23.scan_launches`, from the row-kernel
-    keys of the path in `stage23.SHAPES`), and no plain version ran."""
-    from boojum_tpu_torch.prover import stage23
+    own) launched stage23_rows once each, stage23_scan as often as their
+    row counts ask (`stage23.scan_launches`, from the row-kernel keys of
+    the path in `stage23.SHAPES`), these and the path's ``sharded`` proves
+    (whose stages 2+3 run op by op) quotient_sweep once each (its keys in
+    `quotient.SHAPES`), and no plain version ran."""
+    from boojum_tpu_torch.prover import quotient, stage23
     keys = {k: c for k, c in stage23.SHAPES.items() if k[0] == "rows"}
     scans = sum(c * stage23.scan_launches(k[1]) for k, c in keys.items())
-    log("%s: %d single-device proves, stage23_rows %d, stage23_scan %d "
-        "launches (%d wanted)" % (what, proves, counts["stage23_rows"],
-                                  counts["stage23_scan"], scans))
+    log("%s: %d single-device and %d sharded proves, stage23_rows %d, "
+        "stage23_scan %d launches (%d wanted), quotient_sweep %d" % (
+            what, proves, sharded, counts["stage23_rows"],
+            counts["stage23_scan"], scans, counts["quotient_sweep"]))
     if counts["stage23_rows"] != proves or sum(keys.values()) != proves \
             or counts["stage23_scan"] != scans:
         raise AssertionError("the %s proves (%d) launched stage23_rows %d "
                              "and stage23_scan %d times (%d wanted)" % (
                                  what, proves, counts["stage23_rows"],
                                  counts["stage23_scan"], scans))
+    if counts["quotient_sweep"] != proves + sharded \
+            or sum(quotient.SHAPES.values()) != proves + sharded:
+        raise AssertionError("the %s proves (%d) launched quotient_sweep %d "
+                             "times" % (what, proves + sharded,
+                                        counts["quotient_sweep"]))
     if counts["plain_on_cuda"]:
         raise AssertionError("a plain version ran on a CUDA tensor")
+
+
+# ---------------------------------------------------------------------------
+# the quotient sweep (csrc/quotient.cu)
+# ---------------------------------------------------------------------------
+
+
+QUOTIENT_SOURCE = "boojum_tpu_torch/csrc/quotient.cu"
+QUOTIENT_REPLACES = "boojum_tpu/prover/device_prover.py:165"
+# the keys (`quotient.Launch.key`: layout, rows a coset, the oracles'
+# columns and LDE factor) that the proves of every path launched, with
+# their launches, gathered by `reset_counts` and `quotient_path_shapes`
+QUOTIENT_SHAPES = collections.Counter()
+QUOTIENT_ITERS = 20
+# the "quotient sweep" stage of each configuration's op-counted prove:
+# label -> (torch ops, wall s), filled by `log_stage_ops` and
+# `stage_profiles`
+QUOTIENT_STAGE = {}
+# most torch ops the stage may take: the flagship's (with the device
+# transcript) and the recursion outer prove's (88,174 and 520,406 when the
+# sweep ran op by op)
+MAX_QUOTIENT_OPS = {"flagship, device transcript": 1000,
+                    "recursion outer cold": 2000}
+
+
+def quotient_path_shapes():
+    """Moves the quotient launches by key since the last call into
+    QUOTIENT_SHAPES."""
+    from boojum_tpu_torch.prover import quotient
+    QUOTIENT_SHAPES.update(quotient.SHAPES)
+    quotient.SHAPES.clear()
+
+
+def check_quotient(rng, key, timed=False, device_scalars=True):
+    """`quotient.quotient_sweep` on the card at a key (layout, rows, the
+    oracles' witness / setup / stage-2 columns and LDE factor) against
+    `quotient_plain` on the same random inputs (`quotient.random_inputs`:
+    every input zero at one point and p - 1 at another), bit-equal, one
+    launch; with ``timed`` the kernel alone, the plain version and the
+    bound (`quotient.quotient_bound`: the bytes read and written once, the
+    function's multiplies). Returns the error and the timing."""
+    import torch
+    from boojum_tpu_torch.prover import quotient
+    q, rows, kw, ks, k2, lde = key
+    if k2 != q.stage2_cols:
+        raise AssertionError("a quotient key with %d stage-2 columns, its "
+                             "layout %d" % (k2, q.stage2_cols))
+    args = quotient.args_on(quotient.random_inputs(rng, q, rows, kw, ks, lde),
+                            "cuda", device_scalars)
+    before = quotient.LAUNCHES["quotient_sweep"]
+    got = quotient.quotient_sweep(*args)
+    if quotient.LAUNCHES["quotient_sweep"] != before + 1:
+        raise AssertionError("quotient_sweep did not launch its kernel once")
+    want, plain_ms = plain_run(lambda: quotient.quotient_plain(*args), timed)
+    what = "quotient_sweep (qd %d, %d rows, %d + %d + %d columns, tape %d)" \
+        % (q.qd, rows, kw, ks, k2, len(q.tape.code))
+    err = require_equal(got, want, what)
+    if not timed:
+        return err, None
+    launch = quotient.Launch(*args)
+    ms = cuda_ms(launch.run, QUOTIENT_ITERS)
+    bound_ms, bound_by = bound(*quotient.quotient_bound(q, rows))
+    log("%s: bit-equal, %.4f ms, plain %.3f ms, bound %.3g ms (%s), %.1f%% "
+        "of bound; tape %d instructions, %d slots, %d multiplies a point"
+        % (what, ms, plain_ms, bound_ms, bound_by, 100 * bound_ms / ms,
+           len(q.tape.code), q.tape.slots, q.tape.muls()))
+    torch.cuda.synchronize()
+    return err, dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by)
+
+
+def made_up_quotient_key(name, rows, qd=None, lde=8):
+    """The key of `quotient.made_up_case` ``name`` at ``rows`` (its qd
+    replaced by ``qd``)."""
+    import dataclasses
+    from boojum_tpu_torch.prover import quotient
+    q, kw, ks = quotient.made_up_case(name)
+    if qd is not None:
+        q = dataclasses.replace(q, qd=qd)
+    return (q, rows, kw, ks, q.stage2_cols, max(lde, q.qd))
+
+
+def check_quotient_kernels(rng):
+    """`quotient_sweep` bit-equal to `quotient_plain` at made-up keys
+    (`quotient.made_up_case`): no lookup; the specialized lookups with the
+    table id in a constant column a repetition and shared; the
+    general-purpose lookups with the marker's selector; general gates under
+    selector paths and a specialized gate; the flattened Poseidon and
+    Poseidon2 gates, also at qd 16 over 4096 rows (the recursion outer
+    prove's shape); one partial block (8 rows); 2^19 points (the
+    lookup-heavy prove's); each with a point of zeros and one of p - 1,
+    host and device challenges; then timed at the flagship's widths
+    (`flagship_like`, 2^16 rows)."""
+    from boojum_tpu_torch.prover import quotient
+    errs = []
+    for name in quotient.MADE_UP_CASES:
+        for rows, dev in ((8, False), (1 << 12, True)):
+            errs.append(check_quotient(rng, made_up_quotient_key(name, rows),
+                                       device_scalars=dev)[0])
+    for key in (made_up_quotient_key("poseidon_gates", 1 << 12, qd=16),
+                made_up_quotient_key("specialized_shared_id", 1 << 17)):
+        errs.append(check_quotient(rng, key)[0])
+    err, timing = check_quotient(rng, made_up_quotient_key(
+        "flagship_like", 1 << 16), timed=True)
+    log("quotient_sweep: bit-equal at the made-up keys %s (8 and 4096 "
+        "rows), Poseidon gates at qd 16, 2^19 points and the flagship's "
+        "widths" % ", ".join(quotient.MADE_UP_CASES))
+    quotient.SHAPES.clear()  # made-up keys, not a prove's
+    return max(errs + [err]), timing
+
+
+def check_quotient_prove_shapes(rng):
+    """The kernel at every key that the proves launched (QUOTIENT_SHAPES),
+    against its plain version and timed; returns the largest error and the
+    timings by key with their launches."""
+    quotient_path_shapes()
+    errs, timings = [], {}
+    for key, launches in QUOTIENT_SHAPES.items():
+        err, t = check_quotient(rng, key, timed=True)
+        errs.append(err)
+        timings[key] = (launches, t)
+    log("quotient prove keys (qd, rows, tape instructions, slots, launches, "
+        "ms, bound ms): %s" % json.dumps(
+            [[k[0].qd, k[1], len(k[0].tape.code), k[0].tape.slots, n,
+              round(t["ms"], 4), round(t["bound_ms"], 4)]
+             for k, (n, t) in timings.items()]))
+    return max(errs), timings
 
 
 def reset_counts():
@@ -1730,10 +1882,13 @@ def reset_counts():
     dbh.NODE_LAUNCHES.clear()
     dbh.SHAPES.clear()
     dbh.PLAIN_CUDA_CALLS = 0
-    from boojum_tpu_torch.prover import stage23
+    from boojum_tpu_torch.prover import quotient, stage23
     stage23_path_shapes()  # the last path's row-kernel keys, kept
     stage23.LAUNCHES.clear()
     stage23.PLAIN_CUDA_CALLS = 0
+    quotient_path_shapes()  # the last path's quotient keys, kept
+    quotient.LAUNCHES.clear()
+    quotient.PLAIN_CUDA_CALLS = 0
 
 
 def read_counts():
@@ -1745,7 +1900,7 @@ def read_counts():
     from boojum_tpu_torch.hash import poseidon
     from boojum_tpu_torch.ntt import mxu_ntt
     from boojum_tpu_torch.ntt import pallas_ntt as pn
-    from boojum_tpu_torch.prover import stage23
+    from boojum_tpu_torch.prover import quotient, stage23
     return dict(ntt_stage=mxu_ntt.LAUNCHES, poseidon2_permute=pp.LAUNCHES,
                 poseidon2_leaf_hashes=pp.LEAF_LAUNCHES,
                 poseidon2_node_layer=pp.NODE_LAUNCHES,
@@ -1761,10 +1916,11 @@ def read_counts():
                 keccak256_node_layers=dbh.NODE_LAUNCHES["keccak256"],
                 stage23_rows=stage23.LAUNCHES["stage23_rows"],
                 stage23_scan=stage23.LAUNCHES["stage23_scan"],
+                quotient_sweep=quotient.LAUNCHES["quotient_sweep"],
                 plain_on_cuda=mxu_ntt.PLAIN_CUDA_CALLS + pp.PLAIN_CUDA_CALLS
                 + pn.PLAIN_CUDA_CALLS + sw.PLAIN_CUDA_CALLS
                 + poseidon.PLAIN_CUDA_CALLS + dbh.PLAIN_CUDA_CALLS
-                + stage23.PLAIN_CUDA_CALLS,
+                + stage23.PLAIN_CUDA_CALLS + quotient.PLAIN_CUDA_CALLS,
                 torch_twiddle_muls=pn.TORCH_TWIDDLE_MULS)
 
 
@@ -2016,6 +2172,9 @@ def stage_profiles(prover, ref):
                                counted_wall_s=round(
                                    prover.last_stage_times[label], 4))
         out[mode] = rows
+        QUOTIENT_STAGE["flagship, %s transcript" % mode] = (
+            rows["quotient sweep"]["torch_ops"],
+            rows["quotient sweep"]["wall_s"])
         log("flagship stage profile, %s transcript (wall: mean of %d synced "
             "proves, alternated; torch ops: one counted prove): %s"
             % (mode, PROFILE_ROUNDS, json.dumps(rows)))
@@ -2128,7 +2287,7 @@ def flagship():
     if counts["poseidon2_node_layer"]:
         raise AssertionError("the main path launched poseidon2_node_layer "
                              "(a tree's node layers take node_layers)")
-    check_stage23_launches(counts, "flagship", 1 + 2 * WARM_ROUNDS)
+    check_stage_launches(counts, "flagship", 1 + 2 * WARM_ROUNDS)
     if per_prove["sha256_witness"] != 1 or per_prove["poseidon_sponge"] < 2:
         raise AssertionError("the default prove should launch sha256_witness "
                              "once and poseidon_sponge more than once, got %d "
@@ -2269,7 +2428,7 @@ def poseidon_tree_flagship(ctx):
     if counts["poseidon2_leaf_hashes"] or counts["poseidon2_node_layer"] or \
             counts["poseidon2_node_layers"]:
         raise AssertionError("the %s path hashed with Poseidon2 trees" % name)
-    check_stage23_launches(counts, name, 2 + PTREE_WARM_PROVES)
+    check_stage_launches(counts, name, 2 + PTREE_WARM_PROVES)
     if host_witness:
         raise AssertionError("the %s prove called materialize_witness_"
                              "columns %d times" % (name, host_witness))
@@ -2371,6 +2530,12 @@ def sharded_flagship(ctx):
                 raise AssertionError("a warm %s prove made %d synchronizing "
                                      "calls, more than %d"
                                      % (name, syncs, MAX_SYNCS["host"]))
+        # the stage split and each stage's torch ops
+        counted, rows = op_counted_prove(lambda on_stage: prover.prove(
+            ref["transcript"], ref["hasher"], on_stage=on_stage))
+        if proof_digest(counted) != sha:
+            raise AssertionError("the op-counted %s proof differs" % name)
+        log_stage_ops(name, rows, prover.last_stage_times)
         before = read_counts()["poseidon_node_layer"]
         ptree = sharding.build_sharded_tree(mesh, ptree_cols, 16, "poseidon")
         launched = read_counts()["poseidon_node_layer"] - before
@@ -2398,7 +2563,7 @@ def sharded_flagship(ctx):
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the %s path"
                                  % (kernel, name))
-    check_stage23_launches(counts, name, 0)
+    check_stage_launches(counts, name, 0, sharded=2 + SHARDED_WARM_PROVES)
     return counts, (art.vk, proof)
 
 
@@ -2453,7 +2618,7 @@ def host_prove_path():
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the host prove path"
                                  % kernel)
-    check_stage23_launches(counts, "host prove", 0)
+    check_stage_launches(counts, "host prove", 0)
     return counts, proofs
 
 
@@ -2462,11 +2627,12 @@ def byte_flagship(ctx, kind, warm):
     (the circuit and base setup of `flagship`): the ``kind`` transcript
     (blake2s or keccak256) on the host and ``kind`` trees on K8 / K9, LDE 8,
     cap 16, security 100, no PoW. Setup, one cold prove and ``warm`` warm
-    proves, each proof's digest against the reference's; with warm proves,
-    the stage split of one synced prove and the synchronizing calls of one
-    more (at most the host transcript's 12: a byte transcript runs on the
-    host). Returns the counts of the path, the byte-hash launches of its
-    last prove by shape, and its proof and VK."""
+    proves, each proof's digest against the reference's; one prove with its
+    torch ops counted by stage (its stages end in syncs: the stage split);
+    with warm proves the synchronizing calls of one more (at most the host
+    transcript's 12: a byte transcript runs on the host). Returns the
+    counts of the path, the byte-hash launches of its last prove by shape,
+    and its proof and VK."""
     import torch
     from boojum_tpu_torch.hash import device_bytes_hash as dbh
     from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
@@ -2537,17 +2703,17 @@ def byte_flagship(ctx, kind, warm):
         if counts[name] <= 0:
             raise AssertionError("%s never launched on the %s path"
                                  % (name, kind))
-    check_stage23_launches(counts, "%s flagship" % kind, 1 + warm)
+    check_stage_launches(counts, "%s flagship" % kind, 1 + warm)
     if counts["poseidon2_leaf_hashes"] or counts["poseidon_sponge"] or \
             counts["poseidon_leaf_hashes"]:
         raise AssertionError("the %s configuration hashed with Poseidon2 "
                              "or Poseidon trees or the Poseidon sponge" % kind)
+    # the stage split and each stage's torch ops from one synced prove
+    staged, rows = op_counted_prove(lambda on_stage: prover.prove(
+        kind, kind, on_stage=on_stage))
+    check(staged, "op-counted")
+    log_stage_ops("%s flagship" % kind, rows, prover.last_stage_times)
     if warm:
-        staged, _ = prove(on_stage=lambda label: None)
-        check(staged, "synced")
-        log("%s flagship stage split (one synced prove, s): %s" % (
-            kind, json.dumps({k: round(v, 4) for k, v in
-                              prover.last_stage_times.items()})))
         sites, (synced, t) = count_syncs(lambda: prove())
         check(synced, "sync-counted")
         log("%s flagship synchronizing calls, one warm prove: %d (%.3f s); "
@@ -2644,6 +2810,9 @@ def log_stage_ops(name, rows, walls):
     its op count."""
     rows = {label: dict(torch_ops=n, wall_s=round(walls[label], 4))
             for label, n in rows.items()}
+    if "quotient sweep" in rows:
+        QUOTIENT_STAGE[name] = (rows["quotient sweep"]["torch_ops"],
+                                rows["quotient sweep"]["wall_s"])
     ops = sum(r["torch_ops"] for r in rows.values())
     log("%s prove, by stage (torch ops dispatched, synced wall): %s; %d "
         "torch ops, %.4f s" % (name, json.dumps(rows), ops,
@@ -2729,7 +2898,7 @@ def circuit_path(name, cs, ref, warm):
         if counts[kernel] <= 0:
             raise AssertionError("%s never launched on the %s path"
                                  % (kernel, name))
-    check_stage23_launches(counts, name, 2 + warm)
+    check_stage_launches(counts, name, 2 + warm)
     if host_witness:
         raise AssertionError("the %s prove called materialize_witness_"
                              "columns %d times" % (name, host_witness))
@@ -2761,7 +2930,8 @@ def keccak_circuit():
 
 def recursion_outer():
     """BASELINE config 2: the inner proof of the 2^5-row circuit (LDE 8, cap
-    8, security 100) made on the card and held to its digest, the outer
+    8, security 100) made on the card and held to its digest (then once
+    more with its torch ops counted by stage), the outer
     circuit that verifies it (132 copy columns, degree 8, flattened Poseidon
     and Poseidon2 gates) synthesized and checked, its setup, then a cold
     prove with its torch ops counted by stage and a warm prove timed, each
@@ -2795,6 +2965,11 @@ def recursion_outer():
     inner_proof, _, inner_shapes = timed_proves(
         "recursion inner (domain %d, cold)" % inner.final_trace_len, iprover,
         iref, iref["proof_json_sha256"], 1)
+    counted, rows = op_counted_prove(lambda on_stage: iprover.prove(
+        iref["transcript"], iref["hasher"], on_stage=on_stage))
+    if proof_digest(counted) != iref["proof_json_sha256"]:
+        raise AssertionError("the op-counted inner proof differs")
+    log_stage_ops("recursion inner", rows, iprover.last_stage_times)
 
     t0 = time.time()
     outer = build_outer_circuit(iart.vk, inner_proof, icfg, iref["transcript"],
@@ -2857,7 +3032,7 @@ def recursion_outer():
 
     counts = read_counts()
     log("recursion path launches (setups + %d proves): %s; host witness "
-        "path calls %d" % (3, json.dumps(counts),
+        "path calls %d" % (4, json.dumps(counts),
                            host_witness_calls() - host_witness))
     for name in ("poseidon2_leaf_hashes", "poseidon2_node_layers",
                  "poseidon_sponge"):
@@ -2867,7 +3042,7 @@ def recursion_outer():
     for what, sh in (("recursion inner", inner_shapes),
                      ("recursion outer", shapes)):
         check_p2_node_launches(sh[1], what)
-    check_stage23_launches(counts, "recursion", 3)
+    check_stage_launches(counts, "recursion", 4)
     return counts, {"inner setup": inner_setup, "inner prove": inner_shapes,
                     "outer setup": outer_setup, "outer prove": shapes}, dict(
         inner=(iart.vk, inner_proof), outer=(oart.vk, outer_proof))
@@ -3040,6 +3215,7 @@ def main():
     phase("poseidon tree checks")
     byte_checks = check_bytes_hash(rng)
     st23_err, _ = check_stage23_kernels(rng)
+    quot_err, quot_made_up = check_quotient_kernels(rng)
     phase("kernel checks")
     if kernels_only:
         log("chip_smoke: --kernels-only, stopping after the kernel checks")
@@ -3100,6 +3276,7 @@ def main():
             for name, err in errs.items():
                 prove_errs[name] = max(prove_errs[name], err)
         st23_prove_err, st23_prove = check_stage23_prove_shapes(rng)
+        quot_prove_err, quot_prove = check_quotient_prove_shapes(rng)
         # K6's row: the prove's largest absorb (the values at z)
         k6 = time_k6(rng, max(s for s in k6_shapes if s[0] == "absorb"),
                      plain=True)
@@ -3176,6 +3353,19 @@ def main():
         kernels.append(row(name, STAGE23_SOURCE, STAGE23_REPLACES,
                            counts[name] + b2s_counts[name] + kec_counts[name],
                            max(st23_err, st23_prove_err), st23_t[name]))
+    # the quotient sweep: the flagship circuit's key (the most launched)
+    quot_launches, quot_t = max(quot_prove.values(), key=lambda v: v[0])
+    kernels.append(row("quotient_sweep", QUOTIENT_SOURCE, QUOTIENT_REPLACES,
+                       counts["quotient_sweep"] + b2s_counts["quotient_sweep"]
+                       + kec_counts["quotient_sweep"],
+                       max(quot_err, quot_prove_err), quot_t))
+    log("quotient sweep stage by configuration (torch ops, wall s of an "
+        "op-counted prove): " + json.dumps(QUOTIENT_STAGE))
+    for label, most in MAX_QUOTIENT_OPS.items():
+        if QUOTIENT_STAGE[label][0] > most:
+            raise AssertionError("the %s prove's quotient sweep took %d "
+                                 "torch ops, more than %d" % (
+                                     label, QUOTIENT_STAGE[label][0], most))
     log("verify seconds per proof: " + json.dumps(verify_secs))
     log("summary: " + json.dumps(dict(per_prove=path_costs, sass={
         k: {f: v[f] for f in ("total", "integer", "imad", "integer_per_pass",

@@ -10,7 +10,7 @@ launches in the timed prove. The profiler's own overhead
 inflates the wall time of the profiled prove, so the idle share is also
 given against the unprofiled warm prove's wall time.
 
-    python3 scripts/torch_profile_flagship.py [--config NAME] [--prover host]
+    python3 scripts/torch_profile_flagship.py [--config NAME] [--prover host|sharded]
 
 ``--config flagship`` (the default): the 8 kB SHA-256 circuit
 (`flagship_proof_digest.json`). ``flagship_poseidon``: the same circuit
@@ -27,7 +27,11 @@ general-purpose (`lookup_heavy_proof_digest.json`,
 ``--prover host`` proves with the port's host `prove` (host numpy stages;
 LDEs, NTTs and trees on the card) and its `create_setup_and_vk` instead of
 `DeviceProver`: one timed prove, no warm-up (a host prove keeps no device
-state between proves), then the profiled one.
+state between proves), then the profiled one. ``--prover sharded`` proves
+through `parallel/` (`create_device_setup` and `DeviceProver` with
+``mesh=make_mesh()``) over an NCCL group of one rank made in the process
+(its store a FileStore in a temporary directory), as `chip_smoke.py`'s
+sharded flagship does.
 """
 
 import argparse
@@ -44,10 +48,27 @@ sys.path.insert(0, ROOT)
 TOP = 12  # kernels listed by device time
 
 
+def one_rank_mesh():
+    """The mesh of an NCCL group of one rank in this process, on cuda:0;
+    the group is destroyed and its store removed at exit."""
+    import atexit
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from boojum_tpu_torch.parallel import make_mesh
+    tmp = tempfile.mkdtemp(prefix="torch_profile_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    atexit.register(shutil.rmtree, tmp, True)
+    atexit.register(dist.destroy_process_group)
+    return make_mesh()
+
+
 def build(config, prover_kind="device"):
     """A prove of ``config`` on the card by ``prover_kind`` (`DeviceProver`,
-    or the host `prove`), as a function of no arguments, and the reference
-    digest of its proof."""
+    the host `prove`, or "sharded": `DeviceProver` over `one_rank_mesh`),
+    as a function of no arguments, and the reference digest of its
+    proof."""
     import numpy as np
     from boojum_tpu_torch.cs.setup import create_base_setup
     from boojum_tpu_torch.prover import (DeviceProver, ProofConfig,
@@ -101,9 +122,15 @@ def build(config, prover_kind="device"):
                                   ref["hasher"], device="cuda")
         return (lambda: prove(cs, art, cfg, *kinds, device="cuda"),
                 ref["proof_json_sha256"])
-    art = create_device_setup(cs, create_base_setup(cs), cfg, ref["hasher"],
-                              device="cuda")
-    prover = DeviceProver(cs, art, cfg, device="cuda")
+    if prover_kind == "sharded":
+        mesh = one_rank_mesh()
+        art = create_device_setup(cs, create_base_setup(cs), cfg,
+                                  ref["hasher"], mesh=mesh)
+        prover = DeviceProver(cs, art, cfg, mesh=mesh)
+    else:
+        art = create_device_setup(cs, create_base_setup(cs), cfg,
+                                  ref["hasher"], device="cuda")
+        prover = DeviceProver(cs, art, cfg, device="cuda")
     return (lambda: prover.prove(*kinds)), ref["proof_json_sha256"]
 
 
@@ -113,7 +140,8 @@ def main():
                     choices=("flagship", "flagship_poseidon", "keccak256",
                              "recursion_outer", "lookup_heavy",
                              "lookup_heavy_general"))
-    ap.add_argument("--prover", default="device", choices=("device", "host"))
+    ap.add_argument("--prover", default="device",
+                    choices=("device", "host", "sharded"))
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -129,7 +157,7 @@ def main():
     from boojum_tpu_torch.hash import poseidon
     from boojum_tpu_torch.ntt import mxu_ntt
     from boojum_tpu_torch.ntt import pallas_ntt as pn
-    from boojum_tpu_torch.prover import stage23
+    from boojum_tpu_torch.prover import quotient, stage23
 
     def launches():
         """The hand kernels' launch counters."""
@@ -139,6 +167,7 @@ def main():
                     poseidon2_node_layers=pp.NODE_LAYERS_LAUNCHES,
                     stage23_rows=stage23.LAUNCHES["stage23_rows"],
                     stage23_scan=stage23.LAUNCHES["stage23_scan"],
+                    quotient_sweep=quotient.LAUNCHES["quotient_sweep"],
                     poseidon_sponge=poseidon.LAUNCHES,
                     poseidon_leaf_hashes=poseidon.LEAF_LAUNCHES,
                     poseidon_node_layer=poseidon.NODE_LAUNCHES,
@@ -150,7 +179,7 @@ def main():
             raise AssertionError("the %s proof differs from the reference"
                                  % args.config)
 
-    if args.prover == "device":
+    if args.prover != "host":
         check(run())  # the warm-up: the device prover's caches
     torch.cuda.synchronize()
     before = launches()

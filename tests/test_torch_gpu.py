@@ -13,8 +13,10 @@ Keccak-256 leaf entries at the block-boundary widths and the flagship's
 widest leaf, and their node-layers entries against the plain per-layer
 chain), the device witness program of a small SHA-256
 circuit on the card against the CPU, a small Blake2s and Keccak-256
-proof on the card against the CPU, and the two kernels of stages 2+3
-against their plain version at the flagship's shape (with zero rows). It
+proof on the card against the CPU, the two kernels of stages 2+3
+against their plain version at the flagship's shape (with zero rows), the
+quotient sweep against its plain version at made-up layouts, and the
+flagship proved on the card to its reference digest. It
 skips
 without a GPU. This file
 imports no JAX, so on the GPU machine (which has none) it runs without the
@@ -353,3 +355,54 @@ def test_stage23_equals_plain(cuda, layout, device_scalars):
     assert launched == {"stage23_rows": 1, "stage23_scan": 1}
     assert torch.equal(got, stage23.stage23_plain(*args))
     assert not got[5 * n // 6].any()  # z is 0 past row 2n/3, A and B too
+
+
+@pytest.mark.parametrize("name,rows,device_scalars", [
+    ("no_lookup", 8, False),  # one partial block
+    ("specialized_ids_per_rep", 1 << 12, True),
+    ("specialized_shared_id", 1 << 12, False),
+    ("general_with_sel", 1 << 12, True),
+    ("poseidon_gates", 1 << 10, True),
+    ("flagship_like", 1 << 16, True),
+])
+def test_quotient_sweep_equals_plain(cuda, name, rows, device_scalars):
+    """`quotient_sweep` (`csrc/quotient.cu`) against `quotient_plain` on the
+    same inputs at made-up layouts (`quotient.made_up_case`), one launch,
+    with every input zero at one point and p - 1 at another."""
+    from boojum_tpu_torch.prover import quotient
+    q, kw, ks = quotient.made_up_case(name)
+    inputs = quotient.random_inputs(np.random.default_rng(21), q, rows, kw,
+                                    ks, lde=8)
+    args = quotient.args_on(inputs, cuda, device_scalars)
+    before = quotient.LAUNCHES.copy()
+    got = quotient.quotient_sweep(*args)
+    assert quotient.LAUNCHES - before == {"quotient_sweep": 1}
+    assert torch.equal(got, quotient.quotient_plain(*args))
+
+
+def test_flagship_proof_digest_on_gpu(cuda):
+    """The flagship (the 8 kB SHA-256 circuit, 2^16 rows, LDE 8, cap 16)
+    proved on the card, its quotient in one `quotient_sweep` launch, its
+    `proof_to_json` digest the reference's
+    (`boojum_tpu_torch/data/flagship_proof_digest.json`)."""
+    import hashlib
+    import json
+    import os
+    from boojum_tpu_torch.prover import quotient
+    with open(os.path.join(os.path.dirname(__file__), "..",
+                           "boojum_tpu_torch", "data",
+                           "flagship_proof_digest.json")) as f:
+        ref = json.load(f)
+    data = bytes(np.random.default_rng(ref["seed"]).integers(
+        0, 256, ref["input_len"], dtype=np.uint8))
+    cs, _ = build_sha256_circuit(data, max_trace_len=ref["max_trace_len"])
+    cs.pad_and_shrink()
+    cfg = ProofConfig(**ref["config"])
+    art = create_device_setup(cs, create_base_setup(cs), cfg, ref["hasher"],
+                              device=cuda)
+    before = quotient.LAUNCHES.copy()
+    proof = DeviceProver(cs, art, cfg, device=cuda).prove(ref["transcript"],
+                                                          ref["hasher"])
+    assert quotient.LAUNCHES - before == {"quotient_sweep": 1}
+    assert hashlib.sha256(proof_to_json(proof).encode()).hexdigest() == \
+        ref["proof_json_sha256"]
